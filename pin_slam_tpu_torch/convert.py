@@ -1,0 +1,81 @@
+"""Carry the JAX package's parameters and map state into the port.
+
+`from_jax` takes plain numpy arrays (the caller pulls them out of the JAX
+objects with `np.asarray`), so this module needs nothing of JAX itself:
+
+    params_np = {"geo_mlp": {"w": [np.asarray(w) for w in mlp["w"]],
+                             "b": [np.asarray(b) for b in mlp["b"]]}}
+    state_np = {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pin_slam_tpu_torch.models import neural_points as npm
+
+STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
+                "ts_update", "certainty", "count", "table")
+
+
+def mlp_from_numpy(mlp_np, device=None):
+    return {"w": [torch.as_tensor(np.array(w, np.float32), device=device)
+                  for w in mlp_np["w"]],
+            "b": [torch.as_tensor(np.array(b, np.float32), device=device)
+                  for b in mlp_np["b"]]}
+
+
+def state_from_numpy(state_np, device=None) -> npm.MapState:
+    def t(name, dtype):
+        return torch.as_tensor(np.array(state_np[name]), device=device
+                               ).to(dtype).clone()
+
+    return npm.MapState(
+        positions=t("positions", torch.float32),
+        orientations=t("orientations", torch.float32),
+        geo_features=t("geo_features", torch.float32),
+        ts_create=t("ts_create", torch.int32),
+        ts_update=t("ts_update", torch.int32),
+        certainty=t("certainty", torch.float32),
+        count=t("count", torch.int64),
+        table=t("table", torch.int64),
+    )
+
+
+def lset_from_numpy(lset_np: dict, device=None):
+    """A LocalSet from numpy arrays (fields pts, gidx, count and optionally
+    cert, ts_upd, quat), e.g. the JAX package's LocalSet._asdict()."""
+    from pin_slam_tpu_torch.ops.knn_join import LocalSet
+
+    def t(name, dtype):
+        a = lset_np.get(name)
+        return None if a is None else torch.as_tensor(
+            np.array(a), device=device).to(dtype)
+
+    return LocalSet(pts=t("pts", torch.float32), gidx=t("gidx", torch.int64),
+                    count=t("count", torch.int64),
+                    cert=t("cert", torch.float32),
+                    ts_upd=t("ts_upd", torch.int32),
+                    quat=t("quat", torch.float32))
+
+
+def from_jax(params_np: Optional[dict], state_np: Optional[dict],
+             device=None):
+    """(params, state) of the port from the JAX package's decoder params
+    ({"geo_mlp": {"w": [...], "b": [...]}}, optional "geo_features") and
+    MapState fields (see STATE_FIELDS), all as numpy arrays. The map's
+    feature array becomes params["geo_features"], as in PinSLAMSystem."""
+    state = None if state_np is None else state_from_numpy(state_np, device)
+    params = None
+    if params_np is not None:
+        params = {"geo_mlp": mlp_from_numpy(params_np["geo_mlp"], device)}
+        if state is not None:
+            params["geo_features"] = state.geo_features
+        elif "geo_features" in params_np:
+            params["geo_features"] = torch.as_tensor(
+                np.asarray(params_np["geo_features"], np.float32),
+                device=device)
+    return params, state
