@@ -1,13 +1,14 @@
 """Configuration of the PyTorch port.
 
 The port's own copy of the part of `pin_slam_tpu/config.py` that its
-join-mode geometry loop reads: the same field names, defaults and YAML
-schema, so every config file of the repo loads into both packages and gives
-the same values for the fields kept here. Keys of features the port has not
-ported yet (loop closure and PGO, meshing, visualisation, saving, ROS) are
-ignored; the flags of features whose results it would change (semantics,
-colour, dynamic filter, bundle adjustment, consistency loss, incidence
-labels, data parallelism) are loaded so that `PinSLAMSystem` refuses them.
+join-mode geometry loop and its mesher read: the same field names, defaults
+and YAML schema, so every config file of the repo loads into both packages
+and gives the same values for the fields kept here. Keys of features the
+port has not ported yet (loop closure and PGO, visualisation, map saving,
+ROS) are ignored; the flags of features whose results it would change
+(semantics, colour, dynamic filter, bundle adjustment, consistency loss,
+incidence labels, data parallelism) are loaded so that `PinSLAMSystem`
+refuses them.
 The `tpu` YAML section keeps its name; its static capacities size the
 port's fixed-capacity tensors the same way.
 """
@@ -150,22 +151,38 @@ class Config:
 
     # --------------------------------------------------------------------- eval
     silence: bool = True
+    mesh_freq_frame: int = 20
+
+    # --------------------------------------------------------------------- mesh
+    mc_res_m: float = 0.3
+    pad_voxel: int = 3
+    skip_top_voxel: int = 2
+    mc_mask_on: bool = True
+    mesh_min_nn: int = 8
+    min_cluster_vertices: int = 300
+    infer_bs: int = 4096
+    save_mesh: bool = False
 
     # ---------------------------------------------------------- static shapes
     map_capacity: int = 1 << 20
     frame_point_cap: int = 1 << 16
     source_point_cap: int = 1 << 13
     max_frames: int = 1 << 14
-    # kNN probe layout. The port implements only 'join' (the tiled
-    # spatial-join k-NN over a per-frame local set); 'auto' resolves to it,
-    # 'cells' and 'brick' raise NotImplementedError.
+    # kNN probe layout: 'join' (the tiled spatial-join k-NN over a per-frame
+    # local set; 'auto' resolves to it) drives the track+map loop, 'cells'
+    # (the hash-table probe of the 33-cell ball) serves queries without a
+    # local set, such as the mesher's; 'brick' raises NotImplementedError.
     probe_mode: str = "auto"
     # capacity of the per-frame compacted local point set (join probe)
     local_set_cap: int = 1 << 17
     dp_on: bool = False                # data parallelism, not ported: refused
 
+    # derived (filled by finalize())
+    infer_bs_final: int = 131072
+
     def finalize(self):
         """Compute derived parameters (reference: utils/config.py:556-562)."""
+        self.infer_bs_final = self.bs * 32
         self.window_radius = max(self.max_range, 6.0)
         self.local_map_radius = self.max_range + 2.0
         self.buffer_size = _next_pow2(int(self.buffer_size))
@@ -330,6 +347,13 @@ class Config:
         e = args.get("eval", {})
         if e:
             self.silence = e.get("silence_log", self.silence)
+            self.mesh_freq_frame = e.get("mesh_freq_frame", self.mesh_freq_frame)
+            self.mesh_min_nn = e.get("mesh_min_nn", self.mesh_min_nn)
+            self.skip_top_voxel = e.get("skip_top_voxel", self.skip_top_voxel)
+            self.min_cluster_vertices = e.get(
+                "min_cluster_vertices", self.min_cluster_vertices)
+            self.mc_res_m = e.get("mc_res_m", self.voxel_size_m)
+            self.save_mesh = e.get("save_mesh", self.save_mesh)
 
         # static shapes (absent in the reference configs)
         tp = args.get("tpu", {})

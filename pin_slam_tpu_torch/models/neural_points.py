@@ -1,11 +1,13 @@
 """Fixed-capacity neural point map. Port of
-`pin_slam_tpu/models/neural_points.py`, part A: the join-mode main path.
+`pin_slam_tpu/models/neural_points.py`, part A: the join-mode main path and
+the cell-table probe that queries without a local set (the mesher's) use.
 
 Point attribute tensors are preallocated at `capacity` + 1 rows; the last
 row is a DUMP row for masked writes and invalid gathers. A power-of-two
 voxel hash table stores the latest point index per cell. The layout is the
 JAX package's, so indices compare 1:1. The brick probe cache of the JAX
-package's hash probes is not kept: the join probe never reads it.
+package's hash probes is not kept: neither the join probe nor the cell
+probe reads it.
 
 Tensors are updated in place where the JAX code builds a new array: the
 map is the single owner of its storage.
@@ -16,10 +18,11 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pin_slam_tpu_torch.ops import hash3d
-from pin_slam_tpu_torch.ops.scatter import scatter_set_last
+from pin_slam_tpu_torch.ops.scatter import index_add_exact, scatter_set_last
 from pin_slam_tpu_torch.ops.voxel import (
     compact_rows,
     voxel_down_sample_hash_mask,
@@ -197,6 +200,105 @@ def insert_points(
     return state, new_ratio
 
 
+def query_neighbors(
+    state: MapState,
+    qpts: torch.Tensor,          # [N, 3] absolute world frame
+    *,
+    offsets: np.ndarray,         # [K, 3] from hash3d.neighbor_offsets
+    resolution: float,
+    nn_k: int,
+    max_dist2: float,
+    time_filter: bool = False,   # travel-distance local-map window
+    travel_dist: Optional[torch.Tensor] = None,
+    cur_ts=0,
+    local_window_dist: float = 0.0,
+    radius_filter: bool = False,  # local-map radius around the sensor
+    sensor_pos: Optional[torch.Tensor] = None,
+    local_map_radius: float = 0.0,
+    reboot_ts=0,
+    use_mid_ts: bool = False,    # window by (create+update)/2
+    probe_mode: str = "cells",
+) -> QueryNeighbors:
+    """k nearest neural points of each query through the voxel hash table.
+    "cells" gathers the table at every cell of the neighborhood ball; the
+    brick-cache probe of the JAX package belongs to part B of this module
+    and is not ported yet."""
+    if probe_mode == "brick":
+        raise NotImplementedError(
+            "probe_mode='brick': the brick-cache probe is part B of "
+            "models/neural_points.py and is not ported yet")
+    if probe_mode != "cells":
+        raise ValueError(f"query_neighbors: unknown probe_mode {probe_mode!r}")
+    return _query_neighbors_cells(
+        state, qpts, offsets=offsets, resolution=resolution, nn_k=nn_k,
+        max_dist2=max_dist2, time_filter=time_filter,
+        travel_dist=travel_dist, cur_ts=cur_ts,
+        local_window_dist=local_window_dist, radius_filter=radius_filter,
+        sensor_pos=sensor_pos, local_map_radius=local_map_radius,
+        reboot_ts=reboot_ts, use_mid_ts=use_mid_ts)
+
+
+def _query_neighbors_cells(
+    state: MapState,
+    qpts: torch.Tensor,
+    *,
+    offsets: np.ndarray,
+    resolution: float,
+    nn_k: int,
+    max_dist2: float,
+    time_filter: bool = False,
+    travel_dist: Optional[torch.Tensor] = None,
+    cur_ts=0,
+    local_window_dist: float = 0.0,
+    radius_filter: bool = False,
+    sensor_pos: Optional[torch.Tensor] = None,
+    local_map_radius: float = 0.0,
+    reboot_ts=0,
+    use_mid_ts: bool = False,
+) -> QueryNeighbors:
+    """Per-cell probe: table gather, then position/timestamp gathers, then
+    the k smallest distances. Candidates are ranked by a STABLE sort, so
+    equal distances keep the lower offset column first, as `lax.top_k`
+    does on the JAX side (`torch.topk` promises no tie order)."""
+    C = state.capacity
+    B = state.table_size
+    dev = qpts.device
+    qpts = qpts.detach()
+    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32, device=dev)
+
+    grid = hash3d.grid_coords(qpts, resolution)            # [N, 3]
+    cells = grid[:, None, :] + offs[None, :, :]            # [N, K, 3]
+    idx = state.table[hash3d.hash_grid(cells, B)]          # [N, K]
+    valid = idx >= 0
+    idx_c = torch.where(valid, idx, torch.full_like(idx, C))
+
+    pos = state.positions[idx_c]                           # [N, K, 3]
+    d2 = torch.sum((pos - qpts[:, None, :]) ** 2, dim=-1)
+    valid = valid & (d2 <= max_dist2)
+
+    if time_filter:
+        tsc = state.ts_create[idx_c]
+        if use_mid_ts:
+            tsc = torch.div(tsc + state.ts_update[idx_c], 2,
+                            rounding_mode="floor")
+        ts_lo = _travel_window_ts_lo(travel_dist, cur_ts, local_window_dist)
+        valid = valid & (tsc >= ts_lo) & (tsc >= reboot_ts)
+    if radius_filter and sensor_pos is not None:
+        d2s = torch.sum((pos - sensor_pos[None, None, :]) ** 2, dim=-1)
+        valid = valid & (d2s < local_map_radius * local_map_radius)
+
+    nn_count = valid.sum(-1, dtype=torch.int32)
+    d2 = torch.where(valid, d2, torch.full_like(d2, BIG_DIST2))
+
+    sd, order = torch.sort(d2, dim=1, stable=True)
+    dist2_k, arg = sd[:, :nn_k], order[:, :nn_k]
+    valid_k = torch.gather(valid, 1, arg)
+    idx_k = torch.where(valid_k, torch.gather(idx_c, 1, arg),
+                        torch.full_like(arg, C))
+    return QueryNeighbors(idx=idx_k, dist2=dist2_k, valid=valid_k,
+                          nn_count=nn_count)
+
+
 def query_neighbors_join(
     qpts: torch.Tensor,          # [N, 3] absolute world frame
     lset,                        # ops.knn_join.LocalSet
@@ -287,8 +389,9 @@ def accumulate_certainty(state: MapState, qn: QueryNeighbors,
     last-update timestamps (in place)."""
     C = state.capacity
     idx = torch.where(qn.valid, qn.idx, torch.full_like(qn.idx, C)).reshape(-1)
-    state.certainty.index_add_(
-        0, idx, torch.where(qn.valid, w, torch.zeros_like(w)).reshape(-1))
+    state.certainty.copy_(index_add_exact(
+        state.certainty, idx,
+        torch.where(qn.valid, w, torch.zeros_like(w)).reshape(-1)))
     state.certainty[C] = 0.0
     if query_ts is not None:
         ts_b = query_ts[:, None].expand(qn.idx.shape).reshape(-1)

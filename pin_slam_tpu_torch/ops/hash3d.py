@@ -9,6 +9,7 @@ gives exactly the uint32 result.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 P1 = 73856093
@@ -42,11 +43,19 @@ def max_valid_dist2(num_nei_cells: int, resolution: float) -> float:
     return 3.0 * ((num_nei_cells + 1) * resolution) ** 2
 
 
+def neighbor_offsets(num_nei_cells: int, search_alpha: float) -> np.ndarray:
+    """Sphere-pruned neighborhood cell offsets [K, 3] int32
+    ({o : |o| < num_nei_cells + search_alpha}; K=33 for cells=2,
+    alpha=0.2), in the JAX package's order (x-major meshgrid)."""
+    r = np.arange(-num_nei_cells, num_nei_cells + 1, dtype=np.int32)
+    dx, dy, dz = np.meshgrid(r, r, r, indexing="ij")
+    offs = np.stack([dx, dy, dz], axis=-1).reshape(-1, 3)
+    d2 = np.sum(offs.astype(np.float64) ** 2, axis=-1)
+    return offs[d2 < (num_nei_cells + search_alpha) ** 2]
+
+
 def neighbor_offsets_max_r2(num_nei_cells: int, search_alpha: float) -> int:
-    """Largest squared cell offset of the sphere-pruned neighborhood
-    ({o : |o| < num_nei_cells + search_alpha}), which sets the join probe's
-    radius bound."""
-    r = torch.arange(-num_nei_cells, num_nei_cells + 1, dtype=torch.float64)
-    d2 = (r[:, None, None] ** 2 + r[None, :, None] ** 2
-          + r[None, None, :] ** 2)
-    return int(d2[d2 < (num_nei_cells + search_alpha) ** 2].max())
+    """Largest squared cell offset of `neighbor_offsets`, which sets the
+    join probe's radius bound."""
+    offs = neighbor_offsets(num_nei_cells, search_alpha).astype(np.int64)
+    return int((offs ** 2).sum(-1).max())

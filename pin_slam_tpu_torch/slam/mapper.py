@@ -24,6 +24,7 @@ import torch
 from pin_slam_tpu_torch.models import losses as L
 from pin_slam_tpu_torch.models import neural_points as npm
 from pin_slam_tpu_torch.ops import hash3d
+from pin_slam_tpu_torch.ops.scatter import index_add_exact
 from pin_slam_tpu_torch.ops.voxel import compact_rows
 from pin_slam_tpu_torch.slam import map_query as mq
 
@@ -193,10 +194,10 @@ def accumulate_certainty_sorted(cert, ts_upd, idx, w, ts, cap: int):
     """Apply many (neighbor id, weight, ts) contributions at once: certainty
     sums and last-update maxima per local row (out of place; dump row
     `cap` reset). The JAX package sorts and segment-sums because a TPU
-    scatter is slow; on the GPU one index_add_ and one amax scatter do it.
-    Float atomics make the certainty sums order-dependent on CUDA (last-bit
-    differences between runs)."""
-    cert = cert.clone().index_add_(0, idx, w)
+    scatter is slow; on the GPU one scatter-add and one amax scatter do it.
+    The sums are order-free (`ops.scatter.index_add_exact`), so they are
+    the same from run to run."""
+    cert = index_add_exact(cert, idx, w)
     cert[cap] = 0.0
     ts_upd = ts_upd.clone().scatter_reduce_(0, idx, ts.to(ts_upd.dtype),
                                             reduce="amax")

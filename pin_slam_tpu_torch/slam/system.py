@@ -87,6 +87,11 @@ def _check_supported(c: Config) -> None:
         raise NotImplementedError(
             f"not ported yet: {', '.join(on)} (the port runs the join-mode "
             "geometry loop only)")
+    if c.probe_mode not in ("auto", "join"):
+        raise NotImplementedError(
+            f"probe_mode={c.probe_mode!r}: the track+map loop implements "
+            "only the join probe (the cells probe serves queries without a "
+            "local set, such as the mesher's)")
 
 
 class PinSLAMSystem:

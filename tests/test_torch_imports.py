@@ -27,6 +27,29 @@ def test_every_module_listed():
         assert f"pin_slam_tpu_torch.{m}" in mods
 
 
+@pytest.mark.parametrize("mod", [
+    "ops.fused_decode", "ops.marching", "slam.mesher", "slam.map_query",
+    "utils.eval_mesh", "ops.cuda_build"])
+def test_mesh_slice_modules_listed(mod):
+    """The modules of the map -> mesh slice are walked by the import check
+    below (a package without an __init__.py would be skipped silently)."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
+def test_chip_smoke_imports_torch_package_only():
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "jax" not in roots and "pin_slam_tpu" not in roots
+    assert "pin_slam_tpu_torch" in roots
+
+
 def test_no_jax_and_no_reference_package_loaded():
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,11 @@
-"""The port's join-path query + decode (pin_slam_tpu_torch.slam.map_query)
-against the JAX package on one map, one decoder and one query set: SDF
-and its spatial gradient (<= 1e-5), the cached-candidate decode the
-tracker uses, the shared-candidate numerical gradient, the split-gradient
-row gather's backward against jax.grad, and the top-k tie rule (exact)."""
+"""The port's query + decode (pin_slam_tpu_torch.slam.map_query) against
+the JAX package on one map, one decoder and one query set: SDF and its
+spatial gradient (<= 1e-5), the cached-candidate decode the tracker uses,
+the shared-candidate numerical gradient, the split-gradient row gather's
+backward against jax.grad, the top-k tie rule (exact), and the lset-less
+path through the cell-table probe (both `weighted_first` values, the fused
+decode route on and off, `query_sdf_and_grad`, the two numerical
+gradients)."""
 
 import numpy as np
 import pytest
@@ -83,9 +86,10 @@ def _sets(js, with_quat):
 def test_query_params_match():
     jq = jmq.make_query_params(_cfg(JConfig))
     tq = tmq.make_query_params(_cfg(TConfig))
-    for f in ("resolution", "nn_k", "max_dist2", "sdf_scale",
-              "weighted_first", "idw_index", "join_max_dist2"):
+    for f in ("offsets", "resolution", "nn_k", "max_dist2", "sdf_scale",
+              "weighted_first", "idw_index", "join_max_dist2", "probe_mode"):
         assert getattr(tq, f) == getattr(jq, f), f
+    np.testing.assert_array_equal(tq.offsets_np, jq.offsets_np)
 
 
 @pytest.mark.parametrize("with_quat", [False, True])
@@ -235,3 +239,178 @@ def test_topk_select_mask_ties():
         np.testing.assert_array_equal(
             tmq.topk_select_mask(_t(d), k).numpy(),
             np.asarray(jmq.topk_select_mask(jnp.asarray(d), k)))
+
+
+# ---------------------------------------------------------------- lset-less
+
+
+def _tstate(js):
+    return convert.from_jax(None, {f: np.array(getattr(js, f))
+                                   for f in convert.STATE_FIELDS})[1]
+
+
+def _qps(weighted_first):
+    return (jmq.make_query_params(_cfg(JConfig))._replace(
+                weighted_first=weighted_first),
+            tmq.make_query_params(_cfg(TConfig))._replace(
+                weighted_first=weighted_first))
+
+
+def test_probe_modes():
+    c = _cfg(TConfig)
+    c.probe_mode = "cells"
+    assert tmq.make_query_params(c).probe_mode == "cells"
+    c.probe_mode = "auto"
+    assert tmq.make_query_params(c).probe_mode == "join"
+    c.probe_mode = "brick"
+    with pytest.raises(NotImplementedError, match="brick"):
+        tmq.make_query_params(c)
+    with pytest.raises(ValueError, match="local set or a map state"):
+        tmq.query_decode(torch.zeros(3, F), None, torch.zeros(2, 3),
+                         tmq.make_query_params(_cfg(TConfig)))
+
+
+@pytest.mark.parametrize("weighted_first,filtered", [
+    (True, False), (False, False), (True, True), (False, True)])
+def test_lsetless_query_decode(world, weighted_first, filtered):
+    """No local set: the cell-table probe over the whole map (a "join"
+    configuration maps to "cells"), positions / orientations / certainty
+    from the state, features from the full [C+1, F] array; with a
+    LocalFilter, the time and radius filters of the probe."""
+    js, mlp, mlp_np, qpts = world
+    ts = _tstate(js)
+    jqp, tqp = _qps(weighted_first)
+    assert tqp.probe_mode == "join"
+    anchor = np.array([0.5, -0.25, 0.1], np.float32)
+    qa = qpts - anchor
+    jlf = tlf = None
+    if filtered:
+        travel = np.arange(4, dtype=np.float32) * 3.0
+        sp = np.array([1.0, 0.5, 0.0], np.float32) - anchor
+        jlf = jmq.LocalFilter(jnp.asarray(travel), jnp.int32(2), 50.0,
+                              sensor_pos=jnp.asarray(sp),
+                              local_map_radius=5.0)
+        tlf = tmq.LocalFilter(_t(travel), 2, 50.0, sensor_pos=_t(sp),
+                              local_map_radius=5.0)
+
+    def f(p):
+        o = jmq.query_decode(js, js.geo_features, mlp, p, jqp,
+                             anchor=jnp.asarray(anchor), lf=jlf,
+                             with_std=True)
+        return jnp.sum(o.sdf), o
+
+    jg, jo = jax.grad(f, has_aux=True)(jnp.asarray(qa))
+    tmlp = convert.mlp_from_numpy(mlp_np)
+    p = _t(qa).requires_grad_(True)
+    to = tmq.query_decode(ts.geo_features, tmlp, p, tqp, state=ts,
+                          anchor=_t(anchor), lf=tlf, with_std=True)
+    (tg,) = torch.autograd.grad(to.sdf.sum(), p)
+    jn = np.asarray(jo.nn_count)
+    assert jn.max() >= 6 and (not filtered or jn.min() == 0)
+    np.testing.assert_array_equal(to.nn_count.numpy(), jn)
+    np.testing.assert_array_equal(to.neighbors.idx.numpy(),
+                                  np.asarray(jo.neighbors.idx))
+    for a, b in ((to.sdf, jo.sdf), (to.sdf_std, jo.sdf_std),
+                 (to.certainty, jo.certainty), (to.weights, jo.weights)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("weighted_first", [True, False])
+def test_fused_route_gives_the_same_sdf(world, weighted_first):
+    """fused=True (the mesher's forward-only route) against fused=False:
+    on the CPU the fused wrapper runs its plain version, so the SDF agrees
+    to the float32 rounding of a differently ordered sum (1e-6). With a
+    decoder the kernel does not compute, with the std, or with
+    weighted_first=True the call raises: the plain decode is never taken
+    in the kernel's place."""
+    js, mlp, mlp_np, qpts = world
+    ts = _tstate(js)
+    _, tqp = _qps(weighted_first)
+    tmlp = convert.mlp_from_numpy(mlp_np)
+    q = _t(qpts)
+    with torch.no_grad():
+        a = tmq.query_decode(ts.geo_features, tmlp, q, tqp, state=ts)
+        if weighted_first:
+            with pytest.raises(ValueError, match="weighted_first"):
+                tmq.query_decode(ts.geo_features, tmlp, q, tqp, state=ts,
+                                 fused=True)
+            return
+        b = tmq.query_decode(ts.geo_features, tmlp, q, tqp, state=ts,
+                             fused=True)
+        np.testing.assert_allclose(b.sdf.numpy(), a.sdf.numpy(), atol=1e-6)
+        np.testing.assert_array_equal(b.nn_count.numpy(), a.nn_count.numpy())
+        assert b.sdf_std is None
+        with pytest.raises(ValueError, match="with_std"):
+            tmq.query_decode(ts.geo_features, tmlp, q, tqp, state=ts,
+                             fused=True, with_std=True)
+        lqp = tqp._replace(mlp_leaky_relu=True)
+        with pytest.raises(ValueError, match="one-hidden-layer"):
+            tmq.query_decode(ts.geo_features, tmlp, q, lqp, state=ts,
+                             fused=True)
+
+
+@pytest.mark.parametrize("weighted_first", [True, False])
+def test_query_sdf_and_grad(world, weighted_first):
+    js, mlp, mlp_np, qpts = world
+    ts = _tstate(js)
+    jqp, tqp = _qps(weighted_first)
+    js_, jg, jo = jmq.query_sdf_and_grad(js, js.geo_features, mlp,
+                                         jnp.asarray(qpts), jqp)
+    with torch.no_grad():       # the function turns autograd on itself
+        ts_, tg, to = tmq.query_sdf_and_grad(
+            ts.geo_features, convert.mlp_from_numpy(mlp_np), _t(qpts), tqp,
+            state=ts)
+    np.testing.assert_array_equal(to.nn_count.numpy(),
+                                  np.asarray(jo.nn_count))
+    np.testing.assert_allclose(ts_.numpy(), np.asarray(js_), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("weighted_first", [True, False])
+def test_query_sdf_numerical_grad(world, weighted_first):
+    """Six full queries; tolerance 1e-4: the central difference divides a
+    1e-6 SDF difference by 2 eps = 0.16."""
+    js, mlp, mlp_np, qpts = world
+    ts = _tstate(js)
+    jqp, tqp = _qps(weighted_first)
+    eps = RES * 0.2
+    q = qpts[:300]
+
+    def jl(feats):
+        g = jmq.query_sdf_numerical_grad(js, feats, mlp, jnp.asarray(q),
+                                         eps, jqp)
+        return jnp.sum(g ** 2), g
+
+    jgf, jg = jax.grad(jl, has_aux=True)(js.geo_features)
+    tf = ts.geo_features.clone().requires_grad_(True)
+    tg = tmq.query_sdf_numerical_grad(tf, convert.mlp_from_numpy(mlp_np),
+                                      _t(q), eps, tqp, state=ts)
+    (tg ** 2).sum().backward()
+    np.testing.assert_allclose(tg.detach().numpy(), np.asarray(jg),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("weighted_first", [True, False])
+def test_numerical_grad_from_neighbors(world, weighted_first):
+    js, mlp, mlp_np, qpts = world
+    ts = _tstate(js)
+    jqp, tqp = _qps(weighted_first)
+    eps = RES * 0.2
+    q = qpts[:300]
+    jo = jmq.query_decode(js, js.geo_features, mlp, jnp.asarray(q), jqp)
+    tmlp = convert.mlp_from_numpy(mlp_np)
+    to = tmq.query_decode(ts.geo_features, tmlp, _t(q), tqp, state=ts)
+    jg = jmq.numerical_grad_from_neighbors(js, js.geo_features, mlp,
+                                           jnp.asarray(q), jo.neighbors, eps,
+                                           jqp)
+    tg = tmq.numerical_grad_from_neighbors(ts, ts.geo_features, tmlp, _t(q),
+                                           to.neighbors, eps, tqp)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-4,
+                               rtol=1e-4)

@@ -41,8 +41,9 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
-def _cfg(cls):
+def _cfg(cls, weighted_first=True):
     c = cls()
+    c.weighted_first = weighted_first
     c.voxel_size_m = RES
     c.probe_mode = "join"
     return c.finalize()
@@ -112,9 +113,20 @@ def _rel(a, b):
 
 
 def test_mapping_loss_and_grads(world):
+    _mapping_loss_and_grads(world, True)
+
+
+def test_mapping_loss_and_grads_per_neighbour_decode(world):
+    """weighted_first=False: the decode at every neighbour, reduced by the
+    IDW weights, in the loss and in the eikonal gradient."""
+    _mapping_loss_and_grads(world, False)
+
+
+def _mapping_loss_and_grads(world, weighted_first):
     js, jpool, tpool, jls, tls, mlp = world
-    jqp = jmq.make_query_params(_cfg(JConfig))
-    tqp = tmq.make_query_params(_cfg(TConfig))
+    jqp = jmq.make_query_params(_cfg(JConfig, weighted_first))
+    tqp = tmq.make_query_params(_cfg(TConfig, weighted_first))
+    assert tqp.weighted_first is weighted_first
     rng = np.random.RandomState(2)
     idx = rng.randint(0, 16000, BS)              # some rows past `count`
     mask = idx < 15000
@@ -189,9 +201,18 @@ def _jax_draws(key, n_iters, subset, pool_count, new_count):
 @pytest.mark.parametrize("n_iters,use_new", [(3, True), (3, False),
                                              (34, True)])
 def test_train_loop(world, n_iters, use_new):
+    _train_loop(world, n_iters, use_new, True)
+
+
+@pytest.mark.parametrize("n_iters,use_new", [(3, True), (34, False)])
+def test_train_loop_per_neighbour_decode(world, n_iters, use_new):
+    _train_loop(world, n_iters, use_new, False)
+
+
+def _train_loop(world, n_iters, use_new, weighted_first):
     js, jpool, tpool, jls, tls, mlp = world
-    jqp = jmq.make_query_params(_cfg(JConfig))
-    tqp = tmq.make_query_params(_cfg(TConfig))
+    jqp = jmq.make_query_params(_cfg(JConfig, weighted_first))
+    tqp = tmq.make_query_params(_cfg(TConfig, weighted_first))
     key = jax.random.PRNGKey(7)
     opt = optax.adam(0.01, eps=1e-15)
     jloop = jmp.make_train_loop(jqp, opt, n_iters=n_iters, bs=BS,

@@ -1,7 +1,8 @@
 """The port's neural point map (pin_slam_tpu_torch.models.neural_points)
 against the JAX package on identical inputs: insert counts and every map
 row 1:1, the local-map mask, the join neighbor query, prune + rehash
-(all exact), IDW weights (<= 1e-6)."""
+(all exact), IDW weights (<= 1e-6), and the cell-table probe (idx, valid,
+nn_count equal, d2 <= 1e-6)."""
 
 import numpy as np
 import pytest
@@ -10,9 +11,11 @@ import torch
 import jax.numpy as jnp
 
 from pin_slam_tpu.models import neural_points as jnpm
+from pin_slam_tpu.ops import hash3d as jh
 from pin_slam_tpu.ops import knn_join as jk
 from pin_slam_tpu_torch import convert
 from pin_slam_tpu_torch.models import neural_points as tnpm
+from pin_slam_tpu_torch.ops import hash3d as th
 from pin_slam_tpu_torch.ops import knn_join as tkj
 
 C, B, F, RES = 8192, 1 << 15, 8, 0.4
@@ -162,3 +165,105 @@ def test_prune_and_rehash(maps):
         j3 = jnpm.rehash(js2, 11, resolution=RES, use_mid_ts=use_mid)
         t3 = tnpm.rehash(ts2, 11, resolution=RES, use_mid_ts=use_mid)
         np.testing.assert_array_equal(t3.table.numpy(), np.asarray(j3.table))
+
+
+@pytest.mark.parametrize("cells,alpha", [(2, 0.2), (1, 0.5), (2, 0.5),
+                                         (3, 0.0)])
+def test_neighbor_offsets(cells, alpha):
+    to = th.neighbor_offsets(cells, alpha)
+    jo = jh.neighbor_offsets(cells, alpha)
+    assert to.dtype == jo.dtype
+    np.testing.assert_array_equal(to, jo)
+    assert th.neighbor_offsets_max_r2(cells, alpha) == int(
+        (jo.astype(np.int64) ** 2).sum(-1).max())
+
+
+def _cells_both(js, ts, q, k, **kw):
+    offs = jh.neighbor_offsets(2, 0.2)
+    jkw = {a: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for a, v in kw.items()}
+    tkw = {a: (torch.as_tensor(v) if isinstance(v, np.ndarray) else v)
+           for a, v in kw.items()}
+    jq = jnpm.query_neighbors(js, jnp.asarray(q), offsets=offs,
+                              resolution=RES, nn_k=k,
+                              max_dist2=jh.max_valid_dist2(2, RES),
+                              probe_mode="cells", **jkw)
+    tq = tnpm.query_neighbors(ts, torch.as_tensor(q),
+                              offsets=th.neighbor_offsets(2, 0.2),
+                              resolution=RES, nn_k=k,
+                              max_dist2=th.max_valid_dist2(2, RES),
+                              probe_mode="cells", **tkw)
+    return jq, tq
+
+
+def _assert_same_neighbors(tq, jq):
+    """Distances are float32 sums of three squares, which XLA and torch
+    may contract differently (<= 1e-6); the ranking they give is the same
+    on these inputs, so indices, validity and counts are equal. Equal
+    distances would keep the lower offset column on both sides (a stable
+    sort here, lax.top_k there)."""
+    np.testing.assert_array_equal(tq.idx.numpy(), np.asarray(jq.idx))
+    np.testing.assert_array_equal(tq.valid.numpy(), np.asarray(jq.valid))
+    np.testing.assert_array_equal(tq.nn_count.numpy(),
+                                  np.asarray(jq.nn_count))
+    np.testing.assert_allclose(tq.dist2.numpy(), np.asarray(jq.dist2),
+                               atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(tnpm.idw_weights(tq).numpy(),
+                               np.asarray(jnpm.idw_weights(jq)), atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 6, 8])
+def test_query_neighbors_cells(maps, k):
+    js, ts, _ = maps
+    q, _ = _scene(5, n=900, shift=0.2)
+    jq, tq = _cells_both(js, ts, q, k)
+    assert int(tq.nn_count.min()) >= 0 and int(tq.nn_count.max()) > k
+    _assert_same_neighbors(tq, jq)
+
+
+@pytest.mark.parametrize("cur_ts,window,reboot,use_mid,radius", [
+    (11, 20.0, 0, False, 0.0), (11, 5.0, 0, False, 0.0),
+    (11, 20.0, 9, False, 0.0), (11, 8.0, 0, True, 0.0),
+    (9, 20.0, 0, False, 8.0), (11, 5.0, 1, True, 6.0)])
+def test_query_neighbors_cells_filters(maps, cur_ts, window, reboot, use_mid,
+                                       radius):
+    js, ts, travel = maps
+    # give the mid-timestamp rule something to move
+    upd = np.array(js.ts_update)
+    upd[: int(js.count)] = np.random.RandomState(3).randint(
+        0, 12, int(js.count))
+    js = js.replace(ts_update=jnp.asarray(upd))
+    ts = ts.replace(ts_update=torch.as_tensor(upd))
+    q, _ = _scene(6, n=900, shift=-0.3)
+    kw = dict(time_filter=True, travel_dist=travel, cur_ts=cur_ts,
+              local_window_dist=window, reboot_ts=reboot, use_mid_ts=use_mid)
+    if radius:
+        kw.update(radius_filter=True, local_map_radius=radius,
+                  sensor_pos=np.array([0.5, -1.0, 0.0], np.float32))
+    jq, tq = _cells_both(js, ts, q, 6, **kw)
+    jall, _ = _cells_both(js, ts, q, 6)
+    # the filters cut something, and leave something
+    assert 0 < int(np.asarray(jq.nn_count).sum()) < int(
+        np.asarray(jall.nn_count).sum())
+    _assert_same_neighbors(tq, jq)
+
+
+def test_query_neighbors_cells_empty_map():
+    js = jnpm.init_map_state(C, B, F, color_on=False, with_btable=False)
+    ts = tnpm.init_map_state(C, B, F)
+    q, _ = _scene(7, n=200)
+    jq, tq = _cells_both(js, ts, q, 6)
+    assert int(tq.nn_count.sum()) == 0 and not bool(tq.valid.any())
+    assert bool((tq.idx == C).all())
+    w = tnpm.idw_weights(tq)
+    assert bool(torch.isfinite(w).all()) and float(w.abs().sum()) == 0.0
+    _assert_same_neighbors(tq, jq)
+
+
+def test_query_neighbors_brick_is_refused(maps):
+    _, ts, _ = maps
+    with pytest.raises(NotImplementedError, match="part B"):
+        tnpm.query_neighbors(ts, torch.zeros(4, 3),
+                             offsets=th.neighbor_offsets(2, 0.2),
+                             resolution=RES, nn_k=6, max_dist2=1.0,
+                             probe_mode="brick")

@@ -181,3 +181,37 @@ class TestMortonAndLocalSet:
         tab_t, bbd_t = tkj._build_pair_rows(_t(q), _t(lp), 1.44)
         np.testing.assert_array_equal(tab_t.numpy(), np.asarray(tab_j).T)
         np.testing.assert_array_equal(bbd_t.numpy(), np.asarray(bbd_j).T)
+
+
+@pytest.mark.parametrize("cols", [0, 1, 8])
+def test_index_add_exact_is_order_free(cols):
+    """The fixed-point scatter-add gives the same bits in any order of its
+    inputs and agrees with a float64 sum to float32 rounding of the result
+    (rtol 1e-6); rows of zeros (the callers' padding, sent to one dump row)
+    change nothing."""
+    from pin_slam_tpu_torch.ops.scatter import index_add_exact
+
+    rng = np.random.RandomState(cols)
+    m, rows = 20000, 40
+    idx = rng.randint(0, rows - 1, m)
+    src = (rng.randn(m, max(cols, 1)) * 10.0 ** rng.uniform(-9, -4, (m, 1))
+           ).astype(np.float32)
+    dead = rng.rand(m) < 0.3
+    idx[dead] = rows - 1
+    src[dead] = 0.0
+    if cols == 0:
+        src = src[:, 0]
+    dst = rng.randn(rows, *src.shape[1:]).astype(np.float32)
+    want = dst.astype(np.float64)
+    np.add.at(want, idx, src.astype(np.float64))
+    got = index_add_exact(torch.as_tensor(dst), torch.as_tensor(idx),
+                          torch.as_tensor(src))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-12)
+    np.testing.assert_array_equal(got.numpy()[rows - 1], dst[rows - 1])
+    perm = rng.permutation(m)
+    again = index_add_exact(torch.as_tensor(dst), torch.as_tensor(idx[perm]),
+                            torch.as_tensor(src[perm]))
+    assert torch.equal(got, again)
+    empty = index_add_exact(torch.as_tensor(dst), torch.zeros(0).long(),
+                            torch.as_tensor(src[:0]))
+    assert torch.equal(empty, torch.as_tensor(dst))

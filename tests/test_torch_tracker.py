@@ -3,7 +3,8 @@ synthetic frame, its map, local set, trained features and decoder are
 carried across with pin_slam_tpu_torch.convert, and both trackers register
 the next frame's source cloud from the same initial guess. Poses agree to
 <= 1e-4 m and <= 1e-3 deg; iteration count, validity and failure code are
-equal."""
+equal. Both decode modes: with `weighted_first=False` the tracker decodes at
+every neighbour and drops points whose neighbours disagree (sdf_std)."""
 
 import numpy as np
 import pytest
@@ -23,8 +24,9 @@ from pin_slam_tpu_torch.slam import map_query as tmq
 from pin_slam_tpu_torch.slam.system import PinSLAMSystem as TSystem
 
 
-def small_config(cls):
+def small_config(cls, weighted_first=True):
     cfg = cls()
+    cfg.weighted_first = weighted_first
     cfg.track_on = True
     cfg.max_range = 60.0
     cfg.min_range = 0.5
@@ -52,22 +54,43 @@ def small_config(cls):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def mapped():
+def _mapped(weighted_first):
     seq = SyntheticSequence(
         scene_sdf=default_scene(),
         poses=circle_trajectory(4, radius=6.0, revolutions=0.03),
         dirs=lidar_directions(512, 32), max_range=60.0)
-    js = JSystem(small_config(JConfig))
+    js = JSystem(small_config(JConfig, weighted_first))
     js.set_gt_poses(seq.poses)
     js.process_frame(0, seq.frame(0))
     return js, seq
 
 
-@pytest.mark.parametrize("offset", [(0.0, 0.0, 0.0, 0.0),
-                                    (0.12, -0.08, 0.03, 1.5)])
+@pytest.fixture(scope="module")
+def mapped():
+    return _mapped(True)
+
+
+@pytest.fixture(scope="module")
+def mapped_per_neighbour():
+    return _mapped(False)
+
+
+OFFSETS = [(0.0, 0.0, 0.0, 0.0), (0.12, -0.08, 0.03, 1.5)]
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
 def test_tracker_pose_parity(mapped, offset):
-    js, seq = mapped
+    _pose_parity(*mapped, offset, True)
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_tracker_pose_parity_per_neighbour_decode(mapped_per_neighbour,
+                                                  offset):
+    _pose_parity(*mapped_per_neighbour, offset, False)
+
+
+def _pose_parity(js, seq, offset, weighted_first):
+    assert js.qp.weighted_first is weighted_first
     pre = js._run_preprocess(seq.frame(1), None)
     src_pts, src_n = np.array(pre[3]), int(pre[5])
     anchor = seq.poses[0][:3, 3].copy()
@@ -84,7 +107,7 @@ def test_tracker_pose_parity(mapped, offset):
                      jnp.asarray(T_init, jnp.float32), None,
                      jnp.asarray(anchor, jnp.float32), lset=js._cur_lset)
 
-    ts = TSystem(small_config(TConfig), device="cpu")
+    ts = TSystem(small_config(TConfig, weighted_first), device="cpu")
     lset = convert.lset_from_numpy(
         {k: v for k, v in js._cur_lset._asdict().items()})
     mlp = convert.mlp_from_numpy(jax.tree.map(np.asarray,
