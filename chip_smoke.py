@@ -7,11 +7,16 @@
    nvcc per source, in parallel) into build/kernels/.
 2. Kernel against plain: the spatial-join k-NN kernel and its plain PyTorch
    version on the same prepared inputs at the two main-path shapes
-   (tracker: 16384 queries, k = 12; training probe: 77824 queries, k = 8;
-   local set capacity 65536). idx, d2, cnt and visits must be equal. Prints
-   the kernel's time, the plain version's, and the bound (the larger of
-   bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s, the H100 SXM
-   peaks, with the operations counted from this run's visited tile pairs).
+   (tracker: 16384 queries, k = 12; training probe: 65536 + 12 * 1000 =
+   77536 queries, padded to 77568, k = 8; local set capacity 65536). idx,
+   d2, cnt and visits must be equal. Prints the longest row of the walk
+   (the most local tiles one query tile visited, the kernel's critical
+   path) and a histogram of the rows, the kernel's time, the plain version's, and the bound: the larger
+   of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s, the H100
+   SXM peaks. The operations are those this run's data needs: the
+   distances of the (warp, 32-point chunk) pairs of the visited tile pairs
+   that the kernel's exact chunk test cannot skip, the tests themselves
+   and the chunks' bounding boxes.
 3. Kernel against plain: the fused per-neighbour SDF decode kernel and its
    plain PyTorch version at the mesher's batch (N = 524288 queries, k = 6,
    F+3 = 11 inputs, H = 64 hidden units) and at a ragged shape (N = 777,
@@ -64,6 +69,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM non-tensor fp32
 # fp32 operations per query/point distance: 3 sub, 1 mul, 2 fma (2 each)
 FLOP_PER_PAIR = 8
+# per query and 32-point chunk, the k-NN kernel's reachability test: per
+# axis 2 sub and 2 max, then 1 mul and 2 fma
+CHUNK_TEST_FLOP = 17
+# per 32-point chunk, its bounding box: 6 reductions of 32 values
+CHUNK_BOX_FLOP = 6 * 31
 
 
 def log(*a):
@@ -133,11 +143,15 @@ def cuda_time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def phase_kernels(frames, poses, dev):
-    """The k-NN kernel against its plain version at the main-path shapes."""
+def knn_cases(frames, poses, dev):
+    """The k-NN walk's prepared inputs at the two main-path shapes: a local
+    set of the first four frames' points (voxel 0.4 m), queries drawn near
+    them. Returns [(shape, n_queries, (qs, lp, tab, bbd, perm, k, md2))]."""
     import torch
+    from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.ops import knn_join as kj
     from pin_slam_tpu_torch.ops.voxel import voxel_down_sample_hash_mask
+    from pin_slam_tpu_torch.slam.map_query import make_query_params
 
     rng = np.random.RandomState(0)
     world = np.concatenate([f @ p[:3, :3].T + p[:3, 3]
@@ -154,8 +168,6 @@ def phase_kernels(frames, poses, dev):
                               cap)
     lp = lset.pts[:-1].contiguous()
     log(f"[kernels] local set: {n} neural points in a {cap}-row set")
-    from pin_slam_tpu_torch.config import Config
-    from pin_slam_tpu_torch.slam.map_query import make_query_params
     md2 = make_query_params(bench_config(Config)).join_max_dist2
     out = []
     for name, nq, k, sigma in (("tracker", 1 << 14, 12, 0.05),
@@ -167,48 +179,119 @@ def phase_kernels(frames, poses, dev):
         q = torch.cat([q, torch.full(((-nq) % kj.TQ, 3), kj.PAD,
                                      device=dev)])
         qs, tab, bbd, perm, md2f = kj.prepare(q, lp, md2, 0.4)
-        got = kj._knn_walk_cuda(qs, lp, tab, bbd, perm, k, md2f)
-        ref = kj._knn_walk_plain(qs, lp, tab, bbd, perm, k, md2f)
+        out.append((name, nq, (qs, lp, tab, bbd, perm, k, md2f)))
+    return out
+
+
+def chunk_reachable(qs, lp, tiles, ltiles, md2):
+    """The k-NN kernel's chunk test, in plain torch: for visited pairs
+    (query tile `tiles[i]`, local tile `ltiles[i]`), whether some query of
+    each warp (32 consecutive queries) can reach the bounding box of each
+    32-point chunk of the local tile. The gap is rounded as the kernel
+    rounds it (fma(gz, gz, fma(gx, gx, gy * gy))), so an unreachable chunk
+    holds no point in radius of the warp. Returns bool [P, TQ/32, TL/32]."""
+    import torch
+    from pin_slam_tpu_torch.ops import knn_join as kj
+
+    nc = kj.TL // 32
+    chunks = lp.reshape(-1, nc, 32, 3)[ltiles]              # [P, nc, 32, 3]
+    lo = chunks.amin(2)[:, None, None]                      # [P, 1, 1, nc, 3]
+    hi = chunks.amax(2)[:, None, None]
+    q = qs.reshape(-1, kj.TQ // 32, 32, 1, 3)[tiles]        # [P, w, 32, 1, 3]
+    gap = torch.clamp(torch.maximum(lo - q, q - hi), min=0.0)
+    gx, gy, gz = gap.unbind(-1)
+    gap2 = kj._fma(gz, gz, kj._fma(gx, gx, gy * gy))        # [P, w, 32, nc]
+    return (gap2 <= md2).any(2)
+
+
+def knn_needed_work(qs, lp, tab, visits, md2, batch=256):
+    """What the k-NN walk must compute on this run's data: for each visited
+    (query tile, local tile) pair, the (warp, chunk) pairs that the chunk
+    test lets through. Returns (reachable (warp, chunk) pairs per query
+    tile, (warp, chunk) pairs tested, distinct chunks visited)."""
+    import torch
+    from pin_slam_tpu_torch.ops import knn_join as kj
+
+    nt, row_cap = tab.shape
+    steps = torch.arange(row_cap, device=tab.device)
+    tiles, rows = torch.nonzero(steps[None] < visits[:, None].long(),
+                                as_tuple=True)
+    ltiles = tab[tiles, rows].long()
+    reach = torch.zeros(nt, dtype=torch.int64, device=tab.device)
+    for s in range(0, len(tiles), batch):
+        ok = chunk_reachable(qs, lp, tiles[s:s + batch],
+                             ltiles[s:s + batch], md2)
+        reach.index_add_(0, tiles[s:s + batch], ok.sum((1, 2)))
+    nc = kj.TL // 32
+    tested = len(tiles) * (kj.TQ // 32) * nc
+    return reach, tested, int(torch.unique(ltiles).numel()) * nc
+
+
+def visit_histogram(visits):
+    """Query tiles by the number of local tiles they walked."""
+    v = visits.cpu().numpy()
+    bins = ((0, 0), (1, 4), (5, 8), (9, 16), (17, 32))
+    return {f"{a}-{b}" if a != b else str(a): int(((v >= a) & (v <= b)).sum())
+            for a, b in bins}
+
+
+def phase_kernels(frames, poses, dev):
+    """The k-NN kernel against its plain version at the main-path shapes:
+    idx, d2, cnt and visits must be equal."""
+    import torch
+    from pin_slam_tpu_torch.ops import knn_join as kj
+
+    out = []
+    for name, nq, args in knn_cases(frames, poses, dev):
+        qs, lp, tab, bbd, perm, k, md2f = args
+        got = kj._knn_walk_cuda(*args)
+        ref = kj._knn_walk_plain(*args)
         torch.cuda.synchronize()
-        names = ("idx", "d2", "cnt", "visits")
-        for nm, a, b in zip(names, got, ref):
-            if nm == "cnt":
-                ok = torch.equal(a, b) or bool(((a == b) | ((a >= k)
-                                                            & (b >= k))).all())
-            else:
-                ok = torch.equal(a, b)
-            if not ok:
+        for nm, a, b in zip(("idx", "d2", "cnt", "visits"), got, ref):
+            if not torch.equal(a, b):
                 raise AssertionError(f"knn_join {name}: kernel {nm} differs "
                                      "from the plain version")
         max_err = float((got[1] - ref[1]).abs().max())
         visits = int(got[3].sum())
-        ms = cuda_time_ms(
-            lambda: kj._knn_walk_cuda(qs, lp, tab, bbd, perm, k, md2f), 50)
-        plain_ms = cuda_time_ms(
-            lambda: kj._knn_walk_plain(qs, lp, tab, bbd, perm, k, md2f), 3)
+        max_visits = int(got[3].max())
+        hist = visit_histogram(got[3])
+        ms = cuda_time_ms(lambda: kj._knn_walk_cuda(*args), 50)
+        plain_ms = cuda_time_ms(lambda: kj._knn_walk_plain(*args), 3)
         nbytes = (qs.numel() * 4 + lp.numel() * 4 + tab.numel() * 4
                   + bbd.numel() * 4 + perm.numel() * 8       # inputs
                   + qs.shape[0] * (k * 8 + 4) + tab.shape[0] * 4)  # outputs
-        flops = visits * kj.TQ * kj.TL * FLOP_PER_PAIR
+        # the operations this data needs: the distances of the reachable
+        # (warp, chunk) pairs, the chunk tests and the chunks' boxes
+        reach, tested, boxes = knn_needed_work(qs, lp, tab, got[3], md2f)
+        pairs = int(reach.sum()) * 32 * 32
+        flops = (pairs * FLOP_PER_PAIR + tested * 32 * CHUNK_TEST_FLOP
+                 + boxes * CHUNK_BOX_FLOP)
+        longest = int(reach.max()) * 32 * 32
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"[kernels] knn_join {name}: N={nq} k={k} L={lp.shape[0]} "
-            f"tile pairs visited={visits} idx/d2/cnt equal, max |d2 err|="
-            f"{max_err} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound:.4f} ms ({'operations' if t_ops > t_bytes else 'bytes'}"
-            f": {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), library n/a")
+        by = "operations" if t_ops > t_bytes else "bytes"
+        log(f"[kernels] knn_join {name}: N={nq} (padded {qs.shape[0]}) k={k} "
+            f"L={lp.shape[0]} query tiles={tab.shape[0]}, tile pairs visited="
+            f"{visits}, longest row {max_visits} tiles, query tiles by "
+            f"tiles walked {hist}; reachable (warp, chunk) pairs "
+            f"{int(reach.sum())} of {tested} tested = {pairs} distances, "
+            f"the longest row's {longest}; idx/d2/cnt/visits equal, max "
+            f"|d2 err|={max_err} | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: "
+            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB), library n/a")
         out.append(dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by="operations" if t_ops > t_bytes else "bytes",
-                        max_abs_err=max_err, n=nq, k=k, visits=visits))
+                        bound_by=by, max_abs_err=max_err, n=nq, k=k,
+                        visits=visits, max_visits=max_visits,
+                        visit_histogram=hist, distances=pairs,
+                        longest_row_distances=longest))
     return out
 
 
-def phase_fused_decode(dev):
-    """The fused decode kernel against its plain version at the mesher's
-    batch shape and at a ragged one."""
+def decode_cases(dev):
+    """The fused decode's inputs at the mesher's batch shape and at a ragged
+    one. Returns [(shape, n, k, d, h, args)], args ending in sdf_scale."""
     import torch
-    from pin_slam_tpu_torch.ops import fused_decode as fd
 
     out = []
     for name, n, k, d, h in (("mesher", 1 << 19, 6, 11, 64),
@@ -225,9 +308,20 @@ def phase_fused_decode(dev):
             rng.randn(h).astype(np.float32) * 0.1,
             rng.randn(h, 1).astype(np.float32),
             np.full(1, 0.01, np.float32))]
-        scale = 0.044
-        got = fd.decode_weighted_sdf(*args, scale)
-        ref = fd.decode_weighted_sdf_reference(*args, scale)
+        out.append((name, n, k, d, h, (*args, 0.044)))
+    return out
+
+
+def phase_fused_decode(dev):
+    """The fused decode kernel against its plain version at the mesher's
+    batch shape and at a ragged one."""
+    import torch
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+
+    out = []
+    for name, n, k, d, h, args in decode_cases(dev):
+        got = fd.decode_weighted_sdf(*args)
+        ref = fd.decode_weighted_sdf_reference(*args)
         torch.cuda.synchronize()
         max_err = float((got - ref).abs().max())
         if not (got.shape == (n,) and bool(torch.isfinite(got).all())
@@ -235,13 +329,13 @@ def phase_fused_decode(dev):
             raise AssertionError(
                 f"fused_decode {name}: kernel differs from the plain version "
                 f"by {max_err} (> {FUSED_ATOL})")
-        ms = cuda_time_ms(lambda: fd.decode_weighted_sdf(*args, scale), 50)
+        ms = cuda_time_ms(lambda: fd.decode_weighted_sdf(*args), 50)
         plain_ms = cuda_time_ms(
-            lambda: fd.decode_weighted_sdf_reference(*args, scale), 10)
+            lambda: fd.decode_weighted_sdf_reference(*args), 10)
         # per row: first product 2*d*h, ReLU h, second product 2*h, then
         # bias, scale, weight and the k-sum (4)
         flops = n * k * (2 * d * h + 3 * h + 4)
-        nbytes = sum(a.numel() for a in args) * 4 + n * 4
+        nbytes = sum(a.numel() for a in args[:-1]) * 4 + n * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
@@ -534,9 +628,12 @@ def main():
         "ms": tr["ms"], "plain_ms": tr["plain_ms"],
         "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None,
+        "max_visits": tr["max_visits"],
         "launches_mesh_path": mesh_knn_launches,
         "shapes": {r["shape"]: {k: r[k] for k in (
-            "n", "k", "visits", "ms", "plain_ms", "bound_ms", "bound_by")}
+            "n", "k", "visits", "max_visits", "distances",
+            "longest_row_distances", "ms", "plain_ms", "bound_ms",
+            "bound_by")}
             for r in kres},
     }, {
         "name": "fused_decode",

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pin_slam_tpu_torch.device import resolve_device
 from pin_slam_tpu_torch.models import neural_points as npm
 
 STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
@@ -22,6 +23,9 @@ STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
 
 
 def mlp_from_numpy(mlp_np, device=None):
+    """The decoder's {"w": [...], "b": [...]} as float32 tensors on `device`
+    (None: the card, see `device.resolve_device`)."""
+    device = resolve_device(device)
     return {"w": [torch.as_tensor(np.array(w, np.float32), device=device)
                   for w in mlp_np["w"]],
             "b": [torch.as_tensor(np.array(b, np.float32), device=device)
@@ -29,6 +33,10 @@ def mlp_from_numpy(mlp_np, device=None):
 
 
 def state_from_numpy(state_np, device=None) -> npm.MapState:
+    """A MapState from numpy arrays of the STATE_FIELDS on `device` (None:
+    the card)."""
+    device = resolve_device(device)
+
     def t(name, dtype):
         return torch.as_tensor(np.array(state_np[name]), device=device
                                ).to(dtype).clone()
@@ -47,8 +55,11 @@ def state_from_numpy(state_np, device=None) -> npm.MapState:
 
 def lset_from_numpy(lset_np: dict, device=None):
     """A LocalSet from numpy arrays (fields pts, gidx, count and optionally
-    cert, ts_upd, quat), e.g. the JAX package's LocalSet._asdict()."""
+    cert, ts_upd, quat), e.g. the JAX package's LocalSet._asdict(), on
+    `device` (None: the card)."""
     from pin_slam_tpu_torch.ops.knn_join import LocalSet
+
+    device = resolve_device(device)
 
     def t(name, dtype):
         a = lset_np.get(name)
@@ -67,7 +78,10 @@ def from_jax(params_np: Optional[dict], state_np: Optional[dict],
     """(params, state) of the port from the JAX package's decoder params
     ({"geo_mlp": {"w": [...], "b": [...]}}, optional "geo_features") and
     MapState fields (see STATE_FIELDS), all as numpy arrays. The map's
-    feature array becomes params["geo_features"], as in PinSLAMSystem."""
+    feature array becomes params["geo_features"], as in PinSLAMSystem.
+    Tensors go to `device`; None means the card, as at every entry point,
+    and raises without one."""
+    device = resolve_device(device)
     state = None if state_np is None else state_from_numpy(state_np, device)
     params = None
     if params_np is not None:

@@ -18,43 +18,49 @@
 // query) costs 2*D*H + 3*H fp32 operations against (D+1)*4 bytes read, at
 // D = 11, H = 64 about 33 operations per byte, above the card's fp32 ridge
 // of 67 TFLOP/s / 3.35 TB/s = 20. The products are too small and too
-// ragged (D = 11, one output column) for the tensor cores to be worth their
-// staging in a first version, so the design aims at the fp32 pipe:
-//   * the TPU kernel pads D -> 128 and H -> 128 lanes and N to blocks of
-//     1024 in padded copies of every input; none of that is carried over.
-//     D, H, k and N are runtime values and the ragged end of N is masked
-//     here;
-//   * one thread per ROW (query n, neighbour j), not per query: a tile is
-//     floor(128 / k) whole queries = up to 128 consecutive rows, which are
-//     one contiguous span of gv. The block copies that span into shared
-//     memory with coalesced loads (a row is D*4 = 44 bytes, so per-thread
-//     row loads straight from device memory would be misaligned and
-//     strided) and each thread then reads its row at an odd stride, free
-//     of bank conflicts;
+// ragged (D = 11, one output column) for the tensor cores, whose TF32
+// rounding would change the result besides, so the design aims at the fp32
+// pipe. A first version with one row per thread issued two 16-byte
+// shared-memory loads of W0 for every 8 fused multiply-adds, so the
+// shared-memory load pipe, not the fp32 pipe, set its pace (2.9x the bound).
+// This one:
+//   * register tiling: each thread decodes R = 4 rows, so each pair of
+//     16-byte W0 broadcasts feeds 8 * R = 32 fused multiply-adds, from 8
+//     hidden units of R rows accumulated at a time in 32 registers;
+//   * a tile is floor(R * 128 / k) whole queries = up to 512 consecutive
+//     rows, one contiguous span of gv. The block copies that span into
+//     shared memory with coalesced loads (a row is D*4 = 44 bytes, so
+//     per-thread row loads from device memory would be misaligned and
+//     strided); thread t takes rows t, t + 128, t + 256, t + 384 and reads
+//     each at an odd stride, free of bank conflicts;
 //   * W0, b0, W1 are staged in shared memory once per block, H padded with
-//     zeros to a multiple of 8, and read as 16-byte warp-wide broadcasts:
-//     8 hidden units are accumulated at a time in registers, so 2 shared
-//     loads feed 8 fused multiply-adds;
+//     zeros to a multiple of 8, and read as 16-byte warp-wide broadcasts;
 //   * the sum over a query's k rows goes through shared memory, in
 //     neighbour order j = 0..k-1;
 //   * blocks walk the tiles with a grid stride, so the weights are staged
-//     a few times per SM rather than once per tile.
+//     a few times per SM rather than once per tile; several blocks on an SM
+//     overlap one block's staging with another's arithmetic.
+// The ragged end of N is masked here; D, H, k and N are runtime values.
 // Rounding: every multiply-add is an explicit fmaf (one rounding), whatever
-// contraction flag the file is built with; the hidden sum runs over the
-// inputs in order f = 0..D-1 from the bias, the output sum over h = 0..H-1
-// from zero. The plain PyTorch version sums in the library's order, so the
-// two agree to float32 rounding of the sums (<= 1e-5 at outputs of O(0.1)),
-// not bit for bit.
+// contraction flag the file is built with; in each row the hidden sum runs
+// over the inputs in order f = 0..D-1 from the bias, the output sum over
+// h = 0..H-1 from zero, then bias, scale and weight, then the k-sum over
+// j = 0..k-1 from zero: the operations and their order of the one-row
+// version, so the output has the same bits. The plain PyTorch version sums
+// in the library's order, so the two agree to float32 rounding of the sums
+// (<= 1e-5 at outputs of O(0.1)), not bit for bit.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int THREADS = 128;   // rows per tile, one thread each
-constexpr int HC = 8;          // hidden units accumulated at a time
+constexpr int THREADS = 128;
+constexpr int R = 4;               // rows per thread
+constexpr int ROWS = R * THREADS;  // rows per tile
+constexpr int HC = 8;              // hidden units accumulated at a time
 
-// DT > 0: the input width is the compile-time DT and a row sits in
+// DT > 0: the input width is the compile-time DT and the rows sit in
 // registers; DT == 0: the width is the runtime d and rows are read from
 // shared memory inside the loop.
 template <int DT>
@@ -72,8 +78,8 @@ fused_decode_kernel(const float* __restrict__ gv, const float* __restrict__ w,
   float* W0s = smem;                 // [d][hp]
   float* b0s = W0s + d * hp;         // [hp]
   float* W1s = b0s + hp;             // [hp]
-  float* xs = W1s + hp;              // [THREADS][ds]
-  float* vs = xs + THREADS * ds;     // [THREADS]
+  float* xs = W1s + hp;              // [ROWS][ds]
+  float* vs = xs + ROWS * ds;        // [ROWS]
   const int tid = threadIdx.x;
 
   for (int e = tid; e < d * hp; e += THREADS) {
@@ -86,7 +92,7 @@ fused_decode_kernel(const float* __restrict__ gv, const float* __restrict__ w,
     W1s[j] = j < h ? w1[j] : 0.0f;
   }
   const float bias1 = b1[0];
-  const int qt = THREADS / k;        // whole queries per tile
+  const int qt = ROWS / k;           // whole queries per tile
 
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int q0 = tile * qt;
@@ -100,57 +106,75 @@ fused_decode_kernel(const float* __restrict__ gv, const float* __restrict__ w,
     }
     __syncthreads();   // also orders the weight staging before its first use
 
-    if (tid < nrows) {
-      const float* xrow = xs + tid * ds;
-      float x[DT > 0 ? DT : 1];
-      if (DT > 0) {
+    // this thread's rows tid + i * THREADS; a row past the tile's end is
+    // computed from stale shared memory and never stored
+    float x[R][DT > 0 ? DT : 1];
+    if (DT > 0) {
 #pragma unroll
-        for (int f = 0; f < DT; ++f) x[f] = xrow[f];
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int f = 0; f < (DT > 0 ? DT : 1); ++f)
+          x[i][f] = xs[(tid + i * THREADS) * ds + f];
+    }
+    float per[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) per[i] = 0.0f;
+    for (int c = 0; c < hp; c += HC) {
+      const float4 ba = *reinterpret_cast<const float4*>(b0s + c);
+      const float4 bb = *reinterpret_cast<const float4*>(b0s + c + 4);
+      float a[R][HC];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        a[i][0] = ba.x; a[i][1] = ba.y; a[i][2] = ba.z; a[i][3] = ba.w;
+        a[i][4] = bb.x; a[i][5] = bb.y; a[i][6] = bb.z; a[i][7] = bb.w;
       }
-      float per = 0.0f;
-      for (int c = 0; c < hp; c += HC) {
-        const float4 ba = *reinterpret_cast<const float4*>(b0s + c);
-        const float4 bb = *reinterpret_cast<const float4*>(b0s + c + 4);
-        float a0 = ba.x, a1 = ba.y, a2 = ba.z, a3 = ba.w;
-        float a4 = bb.x, a5 = bb.y, a6 = bb.z, a7 = bb.w;
 #pragma unroll
-        for (int f = 0; f < (DT > 0 ? DT : d); ++f) {
-          const float xv = DT > 0 ? x[DT > 0 ? f : 0] : xrow[f];
-          const float4 wa =
-              *reinterpret_cast<const float4*>(W0s + f * hp + c);
-          const float4 wb =
-              *reinterpret_cast<const float4*>(W0s + f * hp + c + 4);
-          a0 = fmaf(xv, wa.x, a0);
-          a1 = fmaf(xv, wa.y, a1);
-          a2 = fmaf(xv, wa.z, a2);
-          a3 = fmaf(xv, wa.w, a3);
-          a4 = fmaf(xv, wb.x, a4);
-          a5 = fmaf(xv, wb.y, a5);
-          a6 = fmaf(xv, wb.z, a6);
-          a7 = fmaf(xv, wb.w, a7);
+      for (int f = 0; f < (DT > 0 ? DT : d); ++f) {
+        const float4 wa = *reinterpret_cast<const float4*>(W0s + f * hp + c);
+        const float4 wb =
+            *reinterpret_cast<const float4*>(W0s + f * hp + c + 4);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float xv =
+              DT > 0 ? x[i][DT > 0 ? f : 0] : xs[(tid + i * THREADS) * ds + f];
+          a[i][0] = fmaf(xv, wa.x, a[i][0]);
+          a[i][1] = fmaf(xv, wa.y, a[i][1]);
+          a[i][2] = fmaf(xv, wa.z, a[i][2]);
+          a[i][3] = fmaf(xv, wa.w, a[i][3]);
+          a[i][4] = fmaf(xv, wb.x, a[i][4]);
+          a[i][5] = fmaf(xv, wb.y, a[i][5]);
+          a[i][6] = fmaf(xv, wb.z, a[i][6]);
+          a[i][7] = fmaf(xv, wb.w, a[i][7]);
         }
-        const float4 va = *reinterpret_cast<const float4*>(W1s + c);
-        const float4 vb = *reinterpret_cast<const float4*>(W1s + c + 4);
-        per = fmaf(fmaxf(a0, 0.0f), va.x, per);
-        per = fmaf(fmaxf(a1, 0.0f), va.y, per);
-        per = fmaf(fmaxf(a2, 0.0f), va.z, per);
-        per = fmaf(fmaxf(a3, 0.0f), va.w, per);
-        per = fmaf(fmaxf(a4, 0.0f), vb.x, per);
-        per = fmaf(fmaxf(a5, 0.0f), vb.y, per);
-        per = fmaf(fmaxf(a6, 0.0f), vb.z, per);
-        per = fmaf(fmaxf(a7, 0.0f), vb.w, per);
       }
-      vs[tid] = (per + bias1) * sdf_scale * w[row0 + tid];
+      const float4 va = *reinterpret_cast<const float4*>(W1s + c);
+      const float4 vb = *reinterpret_cast<const float4*>(W1s + c + 4);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        per[i] = fmaf(fmaxf(a[i][0], 0.0f), va.x, per[i]);
+        per[i] = fmaf(fmaxf(a[i][1], 0.0f), va.y, per[i]);
+        per[i] = fmaf(fmaxf(a[i][2], 0.0f), va.z, per[i]);
+        per[i] = fmaf(fmaxf(a[i][3], 0.0f), va.w, per[i]);
+        per[i] = fmaf(fmaxf(a[i][4], 0.0f), vb.x, per[i]);
+        per[i] = fmaf(fmaxf(a[i][5], 0.0f), vb.y, per[i]);
+        per[i] = fmaf(fmaxf(a[i][6], 0.0f), vb.z, per[i]);
+        per[i] = fmaf(fmaxf(a[i][7], 0.0f), vb.w, per[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = tid + i * THREADS;
+      if (row < nrows) vs[row] = (per[i] + bias1) * sdf_scale * w[row0 + row];
     }
     __syncthreads();
 
-    if (tid < nq) {
+    for (int qq = tid; qq < nq; qq += THREADS) {
       float s = 0.0f;
-      for (int j = 0; j < k; ++j) s += vs[tid * k + j];
-      out[q0 + tid] = s;
+      for (int j = 0; j < k; ++j) s += vs[qq * k + j];
+      out[q0 + qq] = s;
     }
     // the next tile's first barrier orders these reads of vs before its
-    // writes; nothing reads xs after the barrier above
+    // writes; every read of xs came before the barrier above
   }
 }
 
@@ -161,7 +185,7 @@ fused_decode_kernel(const float* __restrict__ gv, const float* __restrict__ w,
 extern "C" int fused_decode_smem_bytes(int d, int h) {
   const int hp = (h + HC - 1) / HC * HC;
   return static_cast<int>(sizeof(float)) *
-         (d * hp + 2 * hp + THREADS * (d | 1) + THREADS);
+         (d * hp + 2 * hp + ROWS * (d | 1) + ROWS);
 }
 
 extern "C" int fused_decode_launch(const void* gv, const void* w,
@@ -170,37 +194,31 @@ extern "C" int fused_decode_launch(const void* gv, const void* w,
                                    int n, int k, int d, int h,
                                    float sdf_scale, void* stream) {
   if (n <= 0) return 0;
-  if (k < 1 || k > THREADS || d < 1 || h < 1)
+  if (k < 1 || k > ROWS || d < 1 || h < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = fused_decode_smem_bytes(d, h);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  static int max_blocks = 0;     // enough blocks to fill every SM
-  if (max_blocks == 0) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    max_blocks = sms * 16;
-  }
+  const auto kernel = d == 11 ? fused_decode_kernel<11>
+                              : fused_decode_kernel<0>;
+  // as many blocks as are resident at once, so that every block walks
+  // about the same number of tiles
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int max_blocks = sms * (per_sm > 0 ? per_sm : 1);
   const int hp = (h + HC - 1) / HC * HC;
-  const int qt = THREADS / k;
+  const int qt = ROWS / k;
   const int num_tiles = (n + qt - 1) / qt;
   const int grid = num_tiles < max_blocks ? num_tiles : max_blocks;
-  const float* g = static_cast<const float*>(gv);
-  const float* ww = static_cast<const float*>(w);
-  const float* p0 = static_cast<const float*>(w0);
-  const float* q0 = static_cast<const float*>(b0);
-  const float* p1 = static_cast<const float*>(w1);
-  const float* q1 = static_cast<const float*>(b1);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 11) {
-    fused_decode_kernel<11><<<grid, THREADS, smem, s>>>(
-        g, ww, p0, q0, p1, q1, o, n, k, d, h, hp, sdf_scale, num_tiles);
-  } else {
-    fused_decode_kernel<0><<<grid, THREADS, smem, s>>>(
-        g, ww, p0, q0, p1, q1, o, n, k, d, h, hp, sdf_scale, num_tiles);
-  }
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gv), static_cast<const float*>(w),
+      static_cast<const float*>(w0), static_cast<const float*>(b0),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<float*>(out), n, k, d, h, hp, sdf_scale, num_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,8 +25,9 @@ import ctypes
 
 import torch
 
-MAX_K = 128                # neighbours per query: a tile of the kernel
-#                            holds whole queries in its 128 threads
+MAX_K = 512                # neighbours per query: a tile of the kernel
+#                            (ROWS in csrc/fused_decode.cu) holds whole
+#                            queries in its 512 rows
 SMEM_LIMIT = 48 * 1024     # shared memory of a block without opting in
 
 # number of kernel launches since the last reset (a run reads it to show
@@ -93,7 +94,13 @@ def decode_weighted_sdf(
 ) -> torch.Tensor:
     """Fused per-neighbour SDF decode + weighted mean -> [N]. Launches
     `csrc/fused_decode.cu` on the current stream for CUDA tensors; runs the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.
+
+    The kernel takes k <= MAX_K and a first layer whose staging fits a
+    block's 48 KB of shared memory beside a 512-row tile: D <= 19 inputs
+    at H = 64 hidden units (the shipped decoders have D = F + 3 = 11). It
+    raises ValueError for a larger k, and on a CUDA tensor for a wider
+    first layer."""
     global LAUNCHES
     n, k, d, hid = _check(geo_vec, w, w0, b0, w1, b1)
     if not geo_vec.is_cuda:

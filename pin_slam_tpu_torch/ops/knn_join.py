@@ -252,6 +252,9 @@ def _knn_walk_cuda(qs, lpts, tab, bbd, perm, k: int, max_dist2: float):
                          f"{tuple(tab.shape)} {tuple(perm.shape)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_join: k={k} outside 1..{MAX_K}")
+    if lpts.data_ptr() % 16:
+        raise ValueError("knn_join: the local set must start on a 16-byte "
+                         "boundary (the kernel stages it in 16-byte copies)")
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_c = torch.empty(n, dtype=torch.int32, device=dev)

@@ -17,22 +17,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _dense_case(dev, n_q=1024, L=16384, seed=1):
-    rng = np.random.RandomState(seed)
-    p = np.zeros((L, 3), np.float32)
-    p[:, :2] = rng.rand(L, 2) * 60 - 30
-    p[:, 2] = 0.2 * np.sin(p[:, 0])
-    q = p[rng.randint(0, L, n_q)] + rng.randn(n_q, 3).astype(np.float32) * 0.05
-    pt = torch.as_tensor(p, device=dev)
-    si = tkj._sort_by_morton(pt, torch.ones(L, dtype=torch.bool, device=dev),
-                             1.6)
-    lp = torch.cat([pt[si], torch.full(((-L) % tkj.TL, 3), tkj.PAD,
-                                       device=dev)])
-    qp = torch.cat([torch.as_tensor(q, device=dev),
-                    torch.full(((-n_q) % tkj.TQ, 3), tkj.PAD, device=dev)])
-    return qp, lp
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 6, 8, 12, 16])
 def test_knn_kernel_matches_plain(cuda, k):
@@ -45,6 +29,106 @@ def test_knn_kernel_matches_plain(cuda, k):
     ref = tkj._knn_walk_plain(qs, lp, tab, bbd, perm, k, md2)
     torch.cuda.synchronize()
     assert tkj.LAUNCHES == n0 + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def _sorted_local(p, dev):
+    """Morton-sorted, padded local set and the matching torch tensor."""
+    pt = torch.as_tensor(p, device=dev)
+    L = pt.shape[0]
+    si = tkj._sort_by_morton(pt, torch.ones(L, dtype=torch.bool, device=dev),
+                             1.6)
+    return torch.cat([pt[si], torch.full(((-L) % tkj.TL, 3), tkj.PAD,
+                                         device=dev)])
+
+
+def _pad_queries(q, dev):
+    return torch.cat([torch.as_tensor(q, device=dev),
+                      torch.full(((-len(q)) % tkj.TQ, 3), tkj.PAD,
+                                 device=dev)])
+
+
+def _dense_case(dev, n_q=1024, L=16384, seed=1):
+    """A wavy 60 x 60 m sheet of L points, queries ~5 cm off it."""
+    rng = np.random.RandomState(seed)
+    p = np.zeros((L, 3), np.float32)
+    p[:, :2] = rng.rand(L, 2) * 60 - 30
+    p[:, 2] = 0.2 * np.sin(p[:, 0])
+    q = p[rng.randint(0, L, n_q)] + rng.randn(n_q, 3).astype(np.float32) * 0.05
+    return _pad_queries(q, dev), _sorted_local(p, dev)
+
+
+def _walk_both(qp, lp, k, max_d2, qperm=None):
+    qs, tab, bbd, perm, md2 = tkj.prepare(qp, lp, max_d2, 0.4, qperm)
+    got = tkj._knn_walk_cuda(qs, lp, tab, bbd, perm, k, md2)
+    ref = tkj._knn_walk_plain(qs, lp, tab, bbd, perm, k, md2)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.cuda
+def test_knn_kernel_matches_plain_at_the_tracker_shape(cuda):
+    """The tracker's probe: 16384 queries, k = 12, a 65536-row local set."""
+    qp, lp = _dense_case(cuda, n_q=16384, L=65536, seed=4)
+    got, ref = _walk_both(qp, lp, 12, 1.44)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_refuses_a_misaligned_local_set(cuda):
+    """A local set one row (12 bytes) into its storage is not 16-byte
+    aligned, which the kernel's 16-byte copies need: the wrapper raises
+    and launches nothing."""
+    qp, lp = _dense_case(cuda, seed=6)
+    shifted = torch.empty((lp.shape[0] + 1, 3), device=cuda)
+    shifted[1:] = lp
+    lp = shifted[1:]
+    assert lp.is_contiguous() and lp.data_ptr() % 16 != 0
+    n0 = tkj.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        _walk_both(qp, lp, 8, 1.44)
+    assert tkj.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 12, 16])
+def test_knn_kernel_walks_the_whole_row(cuda, k):
+    """Queries in random order, so every query tile spans the whole cloud
+    and each local tile's bounding-box distance is 0: no query tile can
+    stop early and each walks all 32 tiles of its row. The radius is wider
+    than the cloud, so the first tiles merge hundreds of insertions across
+    the column groups."""
+    rng = np.random.RandomState(5)
+    p = rng.rand(32 * tkj.TL, 3).astype(np.float32) * 10
+    q = _pad_queries(rng.rand(1000, 3).astype(np.float32) * 10, cuda)
+    perm = torch.as_tensor(rng.permutation(q.shape[0]), device=cuda)
+    got, ref = _walk_both(q, _sorted_local(p, cuda), k, 1000.0, perm)
+    assert int(got[3].max()) == tkj.ROW_CAP
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 12, 16])
+def test_knn_kernel_ties_are_bit_equal(cuda, k):
+    """Every point of a 0.25 m lattice three times over, shuffled, queries
+    on and between lattice points: equal distances fall across columns,
+    tiles and the kernel's column groups (the case of
+    tests/test_torch_knn_join.py::_case_ties, which holds the plain version
+    to the JAX kernel)."""
+    rng = np.random.RandomState(2)
+    g = np.stack(np.meshgrid(np.arange(24), np.arange(24), np.arange(4),
+                             indexing="ij"), -1).reshape(-1, 3)
+    p = np.repeat(g.astype(np.float32) * 0.25, 3, axis=0)
+    p = p[rng.permutation(len(p))]
+    q = p[rng.randint(0, len(p), 512)] + \
+        rng.randint(0, 2, (512, 3)).astype(np.float32) * 0.125
+    got, ref = _walk_both(_pad_queries(q, cuda), _sorted_local(p, cuda), k,
+                          1.44)
+    d2 = ref[1]
+    assert int((d2[:, 1:] == d2[:, :-1]).sum()) > d2.shape[0]  # many ties
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -89,6 +173,21 @@ def test_fused_decode_kernel_matches_plain(cuda, n, k, f, h):
     ref = tfd.decode_weighted_sdf_reference(*args)
     assert got.shape == (n,) and got.is_cuda
     assert float(ref.abs().max()) > 1e-3
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1000, 5), (100003, 5), (1000, 7),
+                                 (100003, 7)])
+def test_fused_decode_ragged_tiles(cuda, n, k):
+    """A tile holds floor(512 / k) whole queries (102 at k = 5, 73 at
+    k = 7); N is no multiple of it, so the last tile is partly masked."""
+    gv, w, mlp = _decode_case(cuda, n, k, 8, 64, seed=1)
+    args = (gv, w, mlp["w"][0], mlp["b"][0], mlp["w"][1], mlp["b"][1], 0.05)
+    got = tfd.decode_weighted_sdf(*args)
+    torch.cuda.synchronize()
+    ref = tfd.decode_weighted_sdf_reference(*args)
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-5
 
 

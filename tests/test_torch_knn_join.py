@@ -5,6 +5,9 @@ inexact by design. Ports the cases of tests/test_knn_join.py. The CUDA
 kernel itself is compared with the plain version on the card in
 tests/test_torch_cuda.py."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,9 @@ import jax.numpy as jnp
 
 from pin_slam_tpu.ops import knn_join as jk
 from pin_slam_tpu_torch.ops import knn_join as tkj
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
 def _sorted_set(lpts, res):
@@ -58,9 +64,25 @@ def _case_dense():
     return q, p
 
 
+def _case_ties():
+    """Every point of a 0.25 m lattice three times over, shuffled, and
+    queries on and between lattice points: the distances are exact binary
+    fractions, so equal distances fall across columns, tiles and (in the
+    CUDA kernel) its column groups, and only the tie rule orders them."""
+    rng = np.random.RandomState(2)
+    g = np.stack(np.meshgrid(np.arange(24), np.arange(24), np.arange(4),
+                             indexing="ij"), -1).reshape(-1, 3)
+    p = np.repeat(g.astype(np.float32) * 0.25, 3, axis=0)
+    p = p[rng.permutation(len(p))]
+    q = p[rng.randint(0, len(p), 512)] + \
+        rng.randint(0, 2, (512, 3)).astype(np.float32) * 0.125
+    return q, p
+
+
 @pytest.mark.parametrize("case,k,max_d2", [
     (_case_random, 6, 1.44), (_case_random, 12, 1.44),
-    (_case_random, 8, 0.5), (_case_dense, 6, 1.44), (_case_dense, 12, 1.44)])
+    (_case_random, 8, 0.5), (_case_dense, 6, 1.44), (_case_dense, 12, 1.44),
+    (_case_ties, 6, 1.44), (_case_ties, 12, 1.44)])
 def test_plain_matches_jax_exactly(case, k, max_d2):
     q, p = case()
     (ji, jd, jc), (ti, td, tc), _ = _both(q, p, k, max_d2)
@@ -106,3 +128,37 @@ def test_qperm_passthrough():
                      qperm=torch.as_tensor(perm, dtype=torch.int64))
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("case", [_case_random, _case_dense, _case_ties])
+def test_chunk_test_keeps_every_in_radius_pair(case):
+    """The CUDA kernel skips a (warp, 32-point chunk) pair of a visited
+    tile pair when no query of the warp can reach the chunk's bounding box;
+    `chip_smoke.chunk_reachable` states that test in plain torch, and
+    chip_smoke counts the k-NN bound from it. Every in-radius (query,
+    point) pair of the visited tiles must lie in a pair the test keeps, and
+    the test must skip some."""
+    q, p = case()
+    sp, _ = _sorted_set(p, 0.4)
+    lp = torch.as_tensor(sp)
+    qs, tab, bbd, perm, md2 = tkj.prepare(torch.as_tensor(_pad_q(q)), lp,
+                                          1.44, 0.4)
+    visits = tkj._knn_walk_plain(qs, lp, tab, bbd, perm, 6, md2)[3]
+    steps = torch.arange(tab.shape[1])
+    tiles, rows = torch.nonzero(steps[None] < visits[:, None].long(),
+                                as_tuple=True)
+    ltiles = tab[tiles, rows].long()
+    kept = chip_smoke.chunk_reachable(qs, lp, tiles, ltiles, md2)
+    w, nc = tkj.TQ // 32, tkj.TL // 32
+    assert kept.shape == (len(tiles), w, nc)
+    hits = []
+    for s in range(0, len(tiles), 8):
+        d = (qs.reshape(-1, tkj.TQ, 3)[tiles[s:s + 8], :, None]
+             - lp.reshape(-1, tkj.TL, 3)[ltiles[s:s + 8], None])
+        dx, dy, dz = d.unbind(-1)
+        d2 = tkj._fma(dz, dz, tkj._fma(dx, dx, dy * dy))
+        hits.append((d2 <= md2).reshape(-1, w, 32, nc, 32).any(4).any(2))
+    hit = torch.cat(hits)
+    assert bool(hit.any())
+    assert bool((kept | ~hit).all())
+    assert not bool(kept.all())

@@ -108,7 +108,7 @@ def test_query_decode_sdf_and_grad(world, with_quat):
         return jnp.sum(o.sdf), o
 
     jg, jo = jax.grad(f, has_aux=True)(jnp.asarray(qa))
-    tmlp = convert.mlp_from_numpy(mlp_np)
+    tmlp = convert.mlp_from_numpy(mlp_np, device="cpu")
     p = _t(qa).requires_grad_(True)
     to = tmq.query_decode(_t(jf), tmlp, p, tqp, lset=tls, anchor=_t(anchor))
     (tg,) = torch.autograd.grad(to.sdf.sum(), p)
@@ -154,8 +154,8 @@ def test_decode_sdf_candidates(world, with_quat, weighted_first):
     jg, (js_, jnn, jstd) = jax.grad(f, has_aux=True)(jnp.asarray(moved))
     p = _t(moved).requires_grad_(True)
     ts_, tnn, tstd = tmq.decode_sdf_candidates(
-        tls, convert.mlp_from_numpy(mlp_np), p, tqn.idx, tqn.valid, tqp,
-        trows, with_std=not weighted_first)
+        tls, convert.mlp_from_numpy(mlp_np, device="cpu"), p, tqn.idx,
+        tqn.valid, tqp, trows, with_std=not weighted_first)
     (tg,) = torch.autograd.grad(ts_.sum(), p)
     np.testing.assert_array_equal(tnn.numpy(), np.asarray(jnn))
     np.testing.assert_allclose(ts_.detach().numpy(), np.asarray(js_),
@@ -221,7 +221,8 @@ def test_numerical_grad_shared_join(world, cached):
     jgf, jg = jax.grad(jl, has_aux=True)(jf)
     tf = _t(jf).requires_grad_(True)
     tg = tmq.numerical_grad_shared_join(
-        tls, tf, convert.mlp_from_numpy(mlp_np), _t(qpts), eps, tqp,
+        tls, tf, convert.mlp_from_numpy(mlp_np, device="cpu"), _t(qpts),
+        eps, tqp,
         cand=(tqn.idx, tqn.valid) if cached else None,
         cand_pack=(tmq.pack_lset_nodiff(tls), tf) if cached else None)
     (tg ** 2).sum().backward()
@@ -246,7 +247,8 @@ def test_topk_select_mask_ties():
 
 def _tstate(js):
     return convert.from_jax(None, {f: np.array(getattr(js, f))
-                                   for f in convert.STATE_FIELDS})[1]
+                                   for f in convert.STATE_FIELDS},
+                            device="cpu")[1]
 
 
 def _qps(weighted_first):
@@ -300,7 +302,7 @@ def test_lsetless_query_decode(world, weighted_first, filtered):
         return jnp.sum(o.sdf), o
 
     jg, jo = jax.grad(f, has_aux=True)(jnp.asarray(qa))
-    tmlp = convert.mlp_from_numpy(mlp_np)
+    tmlp = convert.mlp_from_numpy(mlp_np, device="cpu")
     p = _t(qa).requires_grad_(True)
     to = tmq.query_decode(ts.geo_features, tmlp, p, tqp, state=ts,
                           anchor=_t(anchor), lf=tlf, with_std=True)
@@ -329,7 +331,7 @@ def test_fused_route_gives_the_same_sdf(world, weighted_first):
     js, mlp, mlp_np, qpts = world
     ts = _tstate(js)
     _, tqp = _qps(weighted_first)
-    tmlp = convert.mlp_from_numpy(mlp_np)
+    tmlp = convert.mlp_from_numpy(mlp_np, device="cpu")
     q = _t(qpts)
     with torch.no_grad():
         a = tmq.query_decode(ts.geo_features, tmlp, q, tqp, state=ts)
@@ -361,8 +363,8 @@ def test_query_sdf_and_grad(world, weighted_first):
                                          jnp.asarray(qpts), jqp)
     with torch.no_grad():       # the function turns autograd on itself
         ts_, tg, to = tmq.query_sdf_and_grad(
-            ts.geo_features, convert.mlp_from_numpy(mlp_np), _t(qpts), tqp,
-            state=ts)
+            ts.geo_features, convert.mlp_from_numpy(mlp_np, device="cpu"),
+            _t(qpts), tqp, state=ts)
     np.testing.assert_array_equal(to.nn_count.numpy(),
                                   np.asarray(jo.nn_count))
     np.testing.assert_allclose(ts_.numpy(), np.asarray(js_), atol=1e-5,
@@ -388,8 +390,9 @@ def test_query_sdf_numerical_grad(world, weighted_first):
 
     jgf, jg = jax.grad(jl, has_aux=True)(js.geo_features)
     tf = ts.geo_features.clone().requires_grad_(True)
-    tg = tmq.query_sdf_numerical_grad(tf, convert.mlp_from_numpy(mlp_np),
-                                      _t(q), eps, tqp, state=ts)
+    tg = tmq.query_sdf_numerical_grad(
+        tf, convert.mlp_from_numpy(mlp_np, device="cpu"), _t(q), eps, tqp,
+        state=ts)
     (tg ** 2).sum().backward()
     np.testing.assert_allclose(tg.detach().numpy(), np.asarray(jg),
                                atol=1e-4, rtol=1e-4)
@@ -405,7 +408,7 @@ def test_numerical_grad_from_neighbors(world, weighted_first):
     eps = RES * 0.2
     q = qpts[:300]
     jo = jmq.query_decode(js, js.geo_features, mlp, jnp.asarray(q), jqp)
-    tmlp = convert.mlp_from_numpy(mlp_np)
+    tmlp = convert.mlp_from_numpy(mlp_np, device="cpu")
     to = tmq.query_decode(ts.geo_features, tmlp, _t(q), tqp, state=ts)
     jg = jmq.numerical_grad_from_neighbors(js, js.geo_features, mlp,
                                            jnp.asarray(q), jo.neighbors, eps,

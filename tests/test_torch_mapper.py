@@ -155,7 +155,8 @@ def _mapping_loss_and_grads(world, weighted_first):
     (jloss, jaux), jg = jax.value_and_grad(jl, has_aux=True)(
         {"geo_features": jnp.asarray(lf_j), "geo_mlp": mlp})
     tf = _t(lf_j).requires_grad_(True)
-    tmlp = convert.mlp_from_numpy(jax.tree.map(np.asarray, mlp))
+    tmlp = convert.mlp_from_numpy(jax.tree.map(np.asarray, mlp),
+                                  device="cpu")
     for p in tmlp["w"] + tmlp["b"]:
         p.requires_grad_(True)
     tloss, taux = tmp.mapping_loss(
@@ -223,7 +224,7 @@ def _train_loop(world, n_iters, use_new, weighted_first):
                                    None, jnp.bool_(use_new), jls)
     s_np = {f: np.asarray(getattr(js, f)) for f in convert.STATE_FIELDS}
     tparams, tst = convert.from_jax(
-        {"geo_mlp": jax.tree.map(np.asarray, mlp)}, s_np)
+        {"geo_mlp": jax.tree.map(np.asarray, mlp)}, s_np, device="cpu")
     tloop = tmp.make_train_loop(tqp, lr=0.01, adam_eps=1e-15,
                                 n_iters=n_iters, bs=BS, bs_new=BS_NEW,
                                 train_decoder=True, loss_kwargs=LOSS_KW,

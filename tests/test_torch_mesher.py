@@ -162,7 +162,8 @@ def world():
             "b": [jnp.asarray(b) for b in mlp_np["b"]]}
     params, ts = convert.from_jax(
         {"geo_mlp": mlp_np},
-        {f: np.array(getattr(js, f)) for f in convert.STATE_FIELDS})
+        {f: np.array(getattr(js, f)) for f in convert.STATE_FIELDS},
+        device="cpu")
     return js, jmlp, ts, params
 
 

@@ -93,8 +93,17 @@ def test_insert_into_full_map():
 
 def test_convert_roundtrip(maps):
     js, _, _ = maps
-    _, ts = convert.from_jax(None, _np_state(js))
+    _, ts = convert.from_jax(None, _np_state(js), device="cpu")
     _assert_same(ts, js)
+
+
+def test_convert_defaults_to_the_card(maps, monkeypatch):
+    """device=None means the card, as at every entry point: without one,
+    from_jax raises instead of placing the map on the CPU."""
+    js, _, _ = maps
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax(None, _np_state(js))
 
 
 @pytest.mark.parametrize("cur_ts,radius", [(9, 0.0), (11, 8.0)])
@@ -137,7 +146,7 @@ def test_query_neighbors_join(maps, k, local_ids):
         js2 = jnpm.accumulate_certainty(js, jq, jnpm.idw_weights(jq),
                                         jnp.asarray(qts))
         ts2 = tnpm.accumulate_certainty(
-            convert.from_jax(None, _np_state(js))[1], tq,
+            convert.from_jax(None, _np_state(js), device="cpu")[1], tq,
             tnpm.idw_weights(tq), torch.as_tensor(qts))
         np.testing.assert_allclose(ts2.certainty.numpy(),
                                    np.asarray(js2.certainty), atol=1e-5)
@@ -154,7 +163,7 @@ def test_prune_and_rehash(maps):
     s["ts_update"][:n] = rng.randint(0, 12, n)
     js = js.replace(certainty=jnp.asarray(s["certainty"]),
                     ts_update=jnp.asarray(s["ts_update"]))
-    _, ts = convert.from_jax(None, s)
+    _, ts = convert.from_jax(None, s, device="cpu")
     js2, jn = jnpm.prune_map(js, 11, jnp.asarray(travel),
                              prune_certainty_thre=3.0, local_window_dist=10.0)
     ts2, tn = tnpm.prune_map(ts, 11, torch.as_tensor(travel),

@@ -139,7 +139,7 @@ def runs(seq):
     ts = TSystem(small_config(TConfig), device="cpu")
     # both systems start from the JAX system's initial decoder
     ts.params["geo_mlp"] = convert.mlp_from_numpy(
-        jax.tree.map(np.asarray, js.params["geo_mlp"]))
+        jax.tree.map(np.asarray, js.params["geo_mlp"]), device="cpu")
     out = {"jax": [], "torch": [], "jcount": [], "tcount": []}
     for sys_, name, cnt in ((js, "jax", "jcount"), (ts, "torch", "tcount")):
         sys_.set_gt_poses(s.poses)

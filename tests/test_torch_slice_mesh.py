@@ -100,7 +100,7 @@ def runs():
     ts = TSystem(small_config(TConfig), device="cpu")
     assert js.qp.weighted_first is False and ts.qp.weighted_first is False
     ts.params["geo_mlp"] = convert.mlp_from_numpy(
-        jax.tree.map(np.asarray, js.params["geo_mlp"]))
+        jax.tree.map(np.asarray, js.params["geo_mlp"]), device="cpu")
     out = {"seq": s, "jax": [], "torch": [], "jcount": [], "tcount": []}
     for sys_, name, cnt in ((js, "jax", "jcount"), (ts, "torch", "tcount")):
         sys_.set_gt_poses(s.poses)

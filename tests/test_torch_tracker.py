@@ -109,9 +109,10 @@ def _pose_parity(js, seq, offset, weighted_first):
 
     ts = TSystem(small_config(TConfig, weighted_first), device="cpu")
     lset = convert.lset_from_numpy(
-        {k: v for k, v in js._cur_lset._asdict().items()})
+        {k: v for k, v in js._cur_lset._asdict().items()}, device="cpu")
     mlp = convert.mlp_from_numpy(jax.tree.map(np.asarray,
-                                              js.params["geo_mlp"]))
+                                              js.params["geo_mlp"]),
+                                 device="cpu")
     track = ts._track
     tres = track(torch.as_tensor(np.array(js._cur_track_feats)), mlp,
                  torch.as_tensor(src_pts), torch.as_tensor(mask),
