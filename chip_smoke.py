@@ -43,6 +43,30 @@
    version to FUSED_ATOL, the mesh must be non-empty, and the median
    distance of points sampled on it to the true scene surface must be <=
    MAX_MESH_MEDIAN_M.
+6. Loop closure: the bench.py configuration with loop closure and PGO on,
+   as config/lidar_slam/run_kitti.yaml ships them (pgo_freq 20), with the
+   cuts of `loop_config` (the floor kept; min_loop_travel_dist_ratio 0.4,
+   so a revisit fits in the run; a local set sized to a lap's map), drives
+   LOOP_FRAMES frames of 1.2 laps of a 6 m circle (~1.09 m per frame, the
+   heading held) through process_frame with
+   `loop_hook=lambda f: loop_mgr.after_frame(f, points)`. It fails unless a
+   closure is accepted, no frame is tracker-invalid, the map carries
+   non-identity orientations afterwards, the training boost is consumed by
+   the frame after the closure, and the closure did what it should: the
+   solve pulled the closure frame at least LOOP_EDGE_PULL of the way from
+   the odometry chain's edge onto the registered loop edge; every live map
+   point, and a sample of POOL_SAMPLE pool rows, moved by the correction of
+   its own timestamp (against a float64 evaluation on the host, to
+   DEFORM_ATOL_M and DEFORM_ROT_ATOL); the ATE of the PGO poses (no
+   alignment) is at most the odometry chain's + the smaller of
+   LOOP_ATE_SLACK_M and LOOP_ATE_SLACK_OF_CORRECTION x the correction at
+   the closure frame; no PGO pose is past MAX_DRIFT_M. Prints each closure
+   (with the errors of its loop edge, of the chain's edge and of the
+   closure frame's odometry and PGO poses against ground truth), the PGO
+   stage's median over closure frames and the others, the device time of
+   one deformation, rehash and replay-pool transform at the run's 12M-row
+   pool, the k-NN launches, fps, ATE before and after PGO and the peak
+   device memory.
 
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
@@ -65,6 +89,18 @@ MAX_DRIFT_M = 0.09 * N_FRAMES
 FUSED_ATOL = 1e-5              # kernel against plain, outputs of O(0.1)
 MAX_MESH_MEDIAN_M = 0.2        # half a map voxel: a bound on lost geometry
 MESH_SAMPLES = 200_000
+LOOP_FRAMES = 44
+# PGO may make the ATE worse by at most this, and by at most half the
+# correction it applied at the closure frame
+LOOP_ATE_SLACK_M = 0.02
+LOOP_ATE_SLACK_OF_CORRECTION = 0.5
+# the solve must pull the closure frame at least halfway from the odometry
+# chain's edge onto the registered loop edge
+LOOP_EDGE_PULL = 0.5
+DEFORM_ATOL_M = 1e-4           # float32 transforms of points ~40 m out
+DEFORM_ROT_ATOL = 1e-5         # rotation-matrix entries, float32 quaternions
+CORRECTION_ATOL = 1e-6         # float32 copies of the solve's corrections
+POOL_SAMPLE = 1 << 17          # pool rows held against the plain evaluation
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM non-tensor fp32
 # fp32 operations per query/point distance: 3 sub, 1 mul, 2 fma (2 each)
@@ -127,6 +163,47 @@ def make_sequence(n_frames):
 
 def _frame(i):
     return make_sequence(N_FRAMES).frame(i)
+
+
+def loop_config(Config):
+    """bench_config with loop closure and PGO as run_kitti.yaml ships them
+    (`pgo:` section, pgo_freq_frame 20). Two cuts: the scene's floor is
+    kept (min_z = -7 m; the road of run_kitti.yaml's min_z_m = -3.5 lies
+    1.73 m below KITTI's sensor), and loop candidates need 0.4 x
+    local_map_radius (33 m) of travel instead of 4.0 x (328 m). The local
+    set's static cap is sized to a lap's map (2^18 rows; bench.py's 2^16
+    holds its 20 frames' ~50k points): a smaller cap would truncate the
+    local map, which the tracker cannot survive."""
+    cfg = bench_config(Config)
+    cfg.pgo_on = True
+    cfg.pgo_freq = 20
+    cfg.min_z = -7.0
+    cfg.min_loop_travel_dist_ratio = 0.4
+    cfg.local_set_cap = 1 << 18
+    return cfg
+
+
+def make_loop_sequence(n_frames=LOOP_FRAMES, radius=6.0, revolutions=1.2,
+                       yaw_follow=False):
+    """1.2 laps of a 6 m circle in make_sequence's scene, ~1.09 m per frame
+    (KITTI at 39 km/h), so the frames after ~35 revisit the start. The
+    sensor keeps its heading: a heading that follows so tight a circle
+    turns 10.4 deg a frame, which the tracker does not follow (it loses
+    track in the first frames, with a 4- or a 10-frame ease-in)."""
+    from pin_slam_tpu_torch.dataset.synthetic import (
+        SyntheticSequence, circle_trajectory, default_scene,
+        lidar_directions)
+    return SyntheticSequence(
+        scene_sdf=default_scene(half_extent=(40.0, 30.0, 6.0)),
+        poses=circle_trajectory(n_frames, radius=radius,
+                                revolutions=revolutions, ease_in_frames=4,
+                                yaw_follow=yaw_follow),
+        dirs=lidar_directions(1800, 64), max_range=80.0)
+
+
+def _loop_frame(args):
+    i, traj = args
+    return make_loop_sequence(**traj).frame(i)
 
 
 def cuda_time_ms(fn, reps):
@@ -350,18 +427,23 @@ def phase_fused_decode(dev):
     return out
 
 
-def run_frames(system, frames, poses, tag):
+def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None):
     """Drives process_frame over the frames, each frame's successor passed
-    as next_points as bench.py does. Returns the estimated poses and the
-    steady-state seconds per frame (wall clock from the end of the warm-up
-    to the end of the last frame, closed by a device sync)."""
+    as next_points as bench.py does, and `loop_mgr.after_frame` as the loop
+    hook when given. `on_frame(fid)` runs after each frame. Returns the
+    estimated poses and the steady-state seconds per frame (wall clock from
+    the end of the warm-up to the end of the last frame, closed by a device
+    sync)."""
     import torch
     est, lost = [], []
     t_steady = None
     for fid in range(len(frames)):
         t0 = time.time()
+        hook = None
+        if loop_mgr is not None:
+            hook = (lambda f, _p=frames[fid]: loop_mgr.after_frame(f, _p))
         est.append(system.process_frame(
-            fid, frames[fid],
+            fid, frames[fid], loop_hook=hook,
             next_points=frames[fid + 1] if fid + 1 < len(frames) else None))
         dt = time.time() - t0
         if fid == WARMUP - 1:
@@ -379,6 +461,8 @@ def run_frames(system, frames, poses, tag):
             f"gn_iters={system.last_track_iters}, "
             f"map={int(system.state.count)}, loss="
             f"{float(losses[-1]) if losses is not None else float('nan'):.4f})")
+        if on_frame is not None:
+            on_frame(fid)
     torch.cuda.synchronize()
     steady_s = (time.time() - t_steady) / (len(frames) - WARMUP)
     est = np.stack(est)
@@ -574,6 +658,226 @@ def phase_mesh(frames, poses, scene_sdf, dev):
     return knn_launches, fd_launches
 
 
+def quat_to_rotmat(q):
+    """[N, 4] (w, x, y, z) float64 -> [N, 3, 3]."""
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], axis=-1).reshape(-1, 3, 3)
+
+
+def edge_gap_m(T_a, T_b):
+    """Translation of T_a^-1 T_b, m."""
+    return float(np.linalg.norm((np.linalg.inv(T_a) @ T_b)[:3, 3]))
+
+
+def check_closure(rec, use_mid_ts):
+    """One closure's consequences against a plain float64 evaluation on
+    the host: the per-frame corrections are the solve's new poses times the
+    inverse of the poses before it; each live map point and each sampled
+    pool row moved by the correction of its own (mid-)timestamp, clipped to
+    T-1; each live point's rotation is that correction's rotation times its
+    old one. Also how far the solve moved the closure frame onto the
+    registered edge."""
+    def host(t):
+        return t.cpu().numpy().astype(np.float64)
+
+    b, a = rec["before"], rec["after"]
+    D = host(rec["diffs"])
+    T = D.shape[0]
+    n = int(b["count"])
+    tsc = b["tsc"][:n].cpu().numpy().astype(np.int64)
+    ts = (tsc + b["tsu"][:n].cpu().numpy()) // 2 if use_mid_ts else tsc
+    ts = np.clip(ts, 0, T - 1)
+    p0 = host(b["pos"][:n])
+    want = np.einsum("nij,nj->ni", D[ts, :3, :3], p0) + D[ts, :3, 3]
+    p1 = host(a["pos"][:n])
+    rot_want = D[ts, :3, :3] @ quat_to_rotmat(host(b["quat"][:n]))
+    rot_got = quat_to_rotmat(host(a["quat"][:n]))
+    live = b["prow"].cpu().numpy() < int(b["pcount"])
+    pts = np.clip(b["pts"].cpu().numpy().astype(np.int64)[live], 0, T - 1)
+    q0 = host(b["pcoord"])[live]
+    pool_want = np.einsum("nij,nj->ni", D[pts, :3, :3], q0) + D[pts, :3, 3]
+    d, pg = rec["diag"], rec["pgo"]
+    n_f = d["frame"] + 1
+    return dict(
+        correction_err=float(np.abs(
+            D[:n_f] - pg[:n_f] @ np.linalg.inv(rec["old"][:n_f])).max()),
+        map_rows=n, moved_rows=int((np.linalg.norm(p1 - p0, axis=1)
+                                    > 1e-3).sum()),
+        map_err=float(np.abs(p1 - want).max()),
+        rot_err=float(np.abs(rot_got - rot_want).max()),
+        pool_rows=int(live.sum()),
+        pool_err=float(np.abs(host(a["pcoord"])[live] - pool_want).max()),
+        gap_before=edge_gap_m(d["T_edge"], d["T_chain"]),
+        gap_after=edge_gap_m(d["T_edge"], np.linalg.inv(pg[d["loop"]])
+                             @ pg[d["frame"]]))
+
+
+def record_closures(loop_mgr, dev):
+    """Wraps the loop manager's consequences step so that each closure keeps
+    what it read and wrote (device copies, no sync) for check_closure after
+    the run. Returns the list the records go to."""
+    import torch
+    system, apply, records = loop_mgr.system, loop_mgr._apply_deformation, []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def apply_and_keep(diffs, rehash_ts):
+        s, p = system.state, system.pool
+        prow = torch.randint(0, p.capacity, (POOL_SAMPLE,), device=dev,
+                             generator=gen)
+        before = dict(count=s.count.clone(), pos=s.positions.clone(),
+                      quat=s.orientations.clone(), tsc=s.ts_create.clone(),
+                      tsu=s.ts_update.clone(), pcount=p.count.clone(),
+                      prow=prow, pcoord=p.coord[prow], pts=p.ts[prow])
+        apply(diffs, rehash_ts)
+        records.append(dict(
+            diag=loop_mgr.pgm.loop_diags[-1], old=np.array(system.pgo_poses),
+            pgo=np.array(loop_mgr.pgm.pgo_poses), diffs=diffs.clone(),
+            before=before, after=dict(
+                pos=system.state.positions.clone(),
+                quat=system.state.orientations.clone(),
+                pcoord=system.pool.coord[prow])))
+
+    loop_mgr._apply_deformation = apply_and_keep
+    return records
+
+
+def phase_loop(frames, poses, dev):
+    """Loop closure and PGO on the bench.py workload (run_kitti.yaml's pgo
+    path): a PinSLAMSystem driven through process_frame with the loop
+    manager's after_frame as its loop hook. Returns the k-NN launches and
+    the phase's figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.ops.transforms import transform_points_by_ts
+    from pin_slam_tpu_torch.slam.loop import LoopPgoManager
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+    from pin_slam_tpu_torch.utils.eval_traj import absolute_error
+
+    cfg = loop_config(Config)
+    system = PinSLAMSystem(cfg, device=dev)
+    system.set_gt_poses(poses)
+    loop_mgr = LoopPgoManager(cfg, system)
+    records = record_closures(loop_mgr, dev)
+    pending = []
+    torch.cuda.reset_peak_memory_stats()
+    kj.LAUNCHES = 0
+    _, steady_s = run_frames(
+        system, frames, poses, "loop", loop_mgr=loop_mgr,
+        on_frame=lambda f: pending.append(system.post_loop_iter_boost_pending))
+    launches = kj.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(frames)
+
+    diags = loop_mgr.pgm.loop_diags
+    checks = [check_closure(r, cfg.use_mid_ts) for r in records]
+    for d, r, c in zip(diags, records, checks):
+        f, lid = d["frame"], d["loop"]
+        T_true = np.linalg.inv(poses[lid]) @ poses[f]
+        log(f"[loop] closure at frame {f} to frame {lid} ({d['kind']}): "
+            f"registration residual {d['residual_cm']:.3f} cm, refine moved "
+            f"{d['refine_moved_m']:.4f} m, PGO correction at the current "
+            f"frame {d['pgo_correction_m']:.4f} m; closure frame off the "
+            f"registered edge {c['gap_before'] * 100:.3f} cm before the "
+            f"solve, {c['gap_after'] * 100:.3f} cm after; against ground "
+            f"truth: loop edge {edge_gap_m(T_true, d['T_edge']) * 100:.2f} "
+            f"cm, chain edge {edge_gap_m(T_true, d['T_chain']) * 100:.2f} "
+            f"cm, closure frame odometry "
+            f"{np.linalg.norm(system.odom_poses[f][:3, 3] - poses[f][:3, 3]) * 100:.2f}"
+            f" cm, PGO "
+            f"{np.linalg.norm(r['pgo'][f][:3, 3] - poses[f][:3, 3]) * 100:.2f}"
+            f" cm")
+        log(f"[loop] its consequences against the plain evaluation: "
+            f"corrections max |err| {c['correction_err']:.3g}, map "
+            f"positions max |err| {c['map_err']:.3g} m over {c['map_rows']} "
+            f"live rows ({c['moved_rows']} moved > 1 mm), rotations max "
+            f"|err| {c['rot_err']:.3g}, pool max |err| {c['pool_err']:.3g} m "
+            f"over {c['pool_rows']} sampled rows")
+    if loop_mgr.pgo_count < 1:
+        raise AssertionError("[loop] no loop closure was accepted")
+    for c in checks:
+        if c["gap_after"] > LOOP_EDGE_PULL * c["gap_before"]:
+            raise AssertionError(
+                f"[loop] the solve left the closure frame "
+                f"{c['gap_after']:.4f} m off the registered edge, from "
+                f"{c['gap_before']:.4f} m")
+        if c["correction_err"] > CORRECTION_ATOL \
+                or c["map_err"] > DEFORM_ATOL_M or c["pool_err"] > DEFORM_ATOL_M \
+                or c["rot_err"] > DEFORM_ROT_ATOL or c["moved_rows"] == 0:
+            raise AssertionError(f"[loop] the deformation is not the "
+                                 f"correction of each row's timestamp: {c}")
+    first = diags[0]["frame"]
+    if first + 1 >= n or not (pending[first] == cfg.post_loop_iter_boost
+                              and pending[first + 1] == 0):
+        raise AssertionError(
+            f"[loop] the training boost of the closure at frame {first} was "
+            f"not consumed by the next frame (pending after each frame: "
+            f"{pending[first:first + 2]})")
+    cnt = int(system.state.count)
+    if not bool((system.state.orientations[:cnt, 1:] != 0).any()):
+        raise AssertionError("[loop] the map carries no deformation")
+
+    pgo = system.pgo_poses[:n]
+    odom = system.odom_poses[:n]
+    if not np.isfinite(pgo).all():
+        raise AssertionError("[loop] non-finite PGO pose")
+    ate_odom, _ = absolute_error(poses[:n], odom, align_on=False)
+    ate_pgo, _ = absolute_error(poses[:n], pgo, align_on=False)
+    err = np.linalg.norm(pgo[:, :3, 3] - poses[:n, :3, 3], axis=1)
+    stage = np.asarray(system.timings)[:, 2] * 1e3
+    closing = np.isin(np.arange(n), [d["frame"] for d in diags])
+    log(f"[loop] steady state: {steady_s * 1e3:.1f} ms/frame = "
+        f"{1 / steady_s:.3f} fps over {n - WARMUP} frames; ATE (RMSE, no "
+        f"alignment) of the odometry chain {ate_odom * 100:.2f} cm, of the "
+        f"PGO poses {ate_pgo * 100:.2f} cm, max PGO pose error "
+        f"{err.max() * 100:.2f} cm; PGO stage median "
+        f"{np.median(stage[closing]):.1f} ms over {int(closing.sum())} "
+        f"closure frames, {np.median(stage[~closing]):.2f} ms over the "
+        f"others; knn_join launches {launches} ({launches / n:.1f} per "
+        f"frame); {cnt} map points; peak device memory {peak:.2f} GiB")
+    slack = min(LOOP_ATE_SLACK_M, LOOP_ATE_SLACK_OF_CORRECTION
+                * max(d["pgo_correction_m"] for d in diags))
+    if ate_pgo > ate_odom + slack:
+        raise AssertionError(
+            f"[loop] PGO made the trajectory worse: ATE {ate_pgo:.4f} m > "
+            f"{ate_odom:.4f} m + {slack:.4f} m")
+    check_drift(err)
+    if launches <= 0:
+        raise AssertionError("the loop path never launched the knn_join "
+                             "kernel")
+
+    # one closure's consequences, timed on the device at the run's sizes
+    diffs = torch.as_tensor(
+        loop_mgr.pgm.get_pose_diff().astype(np.float32), device=dev)
+    state, pool = system.state, system.pool
+    deform_ms = cuda_time_ms(lambda: npm.deform_map(
+        state, diffs, use_mid_ts=cfg.use_mid_ts), 5)
+    rehash_ms = cuda_time_ms(lambda: npm.rehash(
+        state, n - 1, resolution=cfg.voxel_size_m,
+        use_mid_ts=cfg.use_mid_ts), 5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pool_ms = cuda_time_ms(lambda: transform_points_by_ts(
+        pool.coord, pool.ts, diffs), 5)
+    pool_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    log(f"[loop] one closure's consequences on the device: deform "
+        f"{deform_ms:.3f} ms ({state.capacity} map rows), rehash "
+        f"{rehash_ms:.3f} ms, replay-pool transform {pool_ms:.3f} ms "
+        f"({pool.capacity} rows, {int(pool.count)} written; peak "
+        f"{pool_peak:.1f} MiB above the resident state)")
+    return launches, dict(fps=1 / steady_s, ate_odom_m=ate_odom,
+                          ate_pgo_m=ate_pgo, closures=len(diags),
+                          deform_ms=deform_ms, rehash_ms=rehash_ms,
+                          pool_ms=pool_ms)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -615,6 +919,16 @@ def main():
     launches, _ = phase_slice(frames, seq.poses, dev)
     mesh_knn_launches, fd_launches = phase_mesh(frames, seq.poses,
                                                 seq.scene_sdf, dev)
+    del frames
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    lseq = make_loop_sequence()
+    with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        loop_frames = pool.map(_loop_frame,
+                               [(i, {}) for i in range(LOOP_FRAMES)])
+    log(f"[data] {LOOP_FRAMES} loop frames, {time.time() - t0:.1f} s")
+    loop_knn_launches, _ = phase_loop(loop_frames, lseq.poses, dev)
 
     tr = next(r for r in kres if r["shape"] == "tracker")
     me = next(r for r in fres if r["shape"] == "mesher")
@@ -630,6 +944,7 @@ def main():
         "library_ms": None,
         "max_visits": tr["max_visits"],
         "launches_mesh_path": mesh_knn_launches,
+        "launches_loop_path": loop_knn_launches,
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",

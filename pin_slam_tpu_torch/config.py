@@ -1,11 +1,11 @@
 """Configuration of the PyTorch port.
 
 The port's own copy of the part of `pin_slam_tpu/config.py` that its
-join-mode geometry loop and its mesher read: the same field names, defaults
-and YAML schema, so every config file of the repo loads into both packages
-and gives the same values for the fields kept here. Keys of features the
-port has not ported yet (loop closure and PGO, visualisation, map saving,
-ROS) are ignored; the flags of features whose results it would change
+join-mode geometry loop, its mesher and its loop closure and pose-graph
+optimisation read: the same field names, defaults and YAML schema, so every
+config file of the repo loads into both packages and gives the same values
+for the fields kept here. Keys of features the port has not ported yet
+(visualisation, map saving, ROS) are ignored; the flags of features whose results it would change
 (semantics, colour, dynamic filter, bundle adjustment, consistency loss,
 incidence labels, data parallelism) are loaded so that `PinSLAMSystem`
 refuses them.
@@ -16,7 +16,7 @@ port's fixed-capacity tensors the same way.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import yaml
 
@@ -148,6 +148,38 @@ class Config:
     eigenvalue_check: bool = True
     eigenvalue_ratio_thre: float = 0.005
     final_residual_ratio_thre: float = 0.6
+
+    # ------------------------------------------------------------- loop closure
+    global_loop_on: bool = True
+    local_map_context: bool = False
+    loop_with_feature: bool = False
+    min_loop_travel_dist_ratio: float = 4.0
+    local_map_context_latency: int = 5
+    loop_local_map_by_travel_dist: bool = False
+    loop_local_map_time_window: int = 100
+    local_loop_dist_thre: float = 2.0
+    context_shape: list = field(default_factory=lambda: [20, 60])
+    npmc_max_dist: float = 60.0
+    context_cosdist_threshold: float = 0.2
+    context_virtual_side_count: int = 5
+    context_virtual_step_m: float = 2.0
+    loop_z_check_on: bool = False
+    loop_dist_drift_ratio_thre: float = 2.0
+
+    # ---------------------------------------------------------------------- pgo
+    pgo_on: bool = False         # run a LoopPgoManager beside the system
+    pgo_freq: int = 30
+    pgo_max_iter: int = 50
+    pgo_tran_std: float = 0.04
+    pgo_rot_std: float = 0.01
+    # loop edges are priced apart from odometry edges (slam/pgo.py)
+    pgo_loop_tran_std: float = 0.05
+    pgo_loop_rot_std: float = 0.5
+    use_reg_cov_mat: bool = False
+    pgo_error_thre_frame: float = 500.0
+    # extra mapping iterations of the first training after an accepted loop
+    # closure, to re-converge the SDF around the deformed map
+    post_loop_iter_boost: int = 15
 
     # --------------------------------------------------------------------- eval
     silence: bool = True
@@ -329,6 +361,40 @@ class Config:
                 "eigenvalue_ratio_thre", self.eigenvalue_ratio_thre)
             self.final_residual_ratio_thre = float(
                 t.get("final_residual_ratio_thre", self.final_residual_ratio_thre))
+
+        if self.track_on and "pgo" in args:
+            g = args["pgo"] or {}
+            self.pgo_on = True
+            self.local_map_context = g.get("map_context", self.local_map_context)
+            self.loop_with_feature = g.get("loop_with_feature", self.loop_with_feature)
+            self.local_map_context_latency = g.get(
+                "local_map_latency", self.local_map_context_latency)
+            self.context_virtual_side_count = g.get(
+                "virtual_side_count", self.context_virtual_side_count)
+            self.context_virtual_step_m = g.get(
+                "virtual_step_m", self.voxel_size_m * 4.0)
+            self.npmc_max_dist = g.get("npmc_max_dist", self.max_range * 0.7)
+            self.pgo_freq = g.get("pgo_freq_frame", self.pgo_freq)
+            self.pgo_tran_std = float(g.get("tran_std", self.pgo_tran_std))
+            self.pgo_rot_std = float(g.get("rot_std", self.pgo_rot_std))
+            self.pgo_loop_tran_std = float(
+                g.get("loop_tran_std", self.pgo_loop_tran_std))
+            self.pgo_loop_rot_std = float(
+                g.get("loop_rot_std", self.pgo_loop_rot_std))
+            self.use_reg_cov_mat = g.get("use_reg_cov", False)
+            self.pgo_error_thre_frame = float(
+                g.get("pgo_error_thre_frame", self.pgo_error_thre_frame))
+            self.pgo_max_iter = g.get("pgo_max_iter", self.pgo_max_iter)
+            self.context_cosdist_threshold = g.get(
+                "context_cosdist", self.context_cosdist_threshold)
+            self.min_loop_travel_dist_ratio = g.get(
+                "min_loop_travel_ratio", self.min_loop_travel_dist_ratio)
+            self.post_loop_iter_boost = int(g.get(
+                "post_loop_iter_boost", self.post_loop_iter_boost))
+            self.loop_dist_drift_ratio_thre = g.get(
+                "max_loop_dist_ratio", self.loop_dist_drift_ratio_thre)
+            self.local_loop_dist_thre = g.get(
+                "local_loop_dist_thre", self.voxel_size_m * 5.0)
 
         o = args.get("optimizer", {})
         if o:

@@ -6,6 +6,7 @@ objects with `np.asarray`), so this module needs nothing of JAX itself:
     params_np = {"geo_mlp": {"w": [np.asarray(w) for w in mlp["w"]],
                              "b": [np.asarray(b) for b in mlp["b"]]}}
     state_np = {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
+    pool_np = {f: np.asarray(getattr(pool, f)) for f in POOL_FIELDS}
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from pin_slam_tpu_torch.models import neural_points as npm
 
 STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
                 "ts_update", "certainty", "count", "table")
+POOL_FIELDS = ("coord", "sdf_label", "weight", "ts", "count", "new_idx",
+               "new_count", "write_pos")
 
 
 def mlp_from_numpy(mlp_np, device=None):
@@ -51,6 +54,19 @@ def state_from_numpy(state_np, device=None) -> npm.MapState:
         count=t("count", torch.int64),
         table=t("table", torch.int64),
     )
+
+
+def pool_from_numpy(pool_np, device=None):
+    """The replay pool (slam/mapper.PoolState) from numpy arrays of the
+    POOL_FIELDS on `device` (None: the card)."""
+    from pin_slam_tpu_torch.slam.mapper import PoolState
+
+    device = resolve_device(device)
+    dtypes = dict(coord=torch.float32, sdf_label=torch.float32,
+                  weight=torch.float32, ts=torch.int32)
+    return PoolState(**{
+        f: torch.as_tensor(np.array(pool_np[f]), device=device).to(
+            dtypes.get(f, torch.int64)).clone() for f in POOL_FIELDS})
 
 
 def lset_from_numpy(lset_np: dict, device=None):

@@ -1,13 +1,14 @@
 """Fixed-capacity neural point map. Port of
-`pin_slam_tpu/models/neural_points.py`, part A: the join-mode main path and
-the cell-table probe that queries without a local set (the mesher's) use.
+`pin_slam_tpu/models/neural_points.py`: the join-mode main path, the
+cell-table probe that queries without a local set (the mesher's) uses, and
+the map maintenance of loop closure (elastic deformation, capacity growth).
 
 Point attribute tensors are preallocated at `capacity` + 1 rows; the last
 row is a DUMP row for masked writes and invalid gathers. A power-of-two
 voxel hash table stores the latest point index per cell. The layout is the
 JAX package's, so indices compare 1:1. The brick probe cache of the JAX
 package's hash probes is not kept: neither the join probe nor the cell
-probe reads it.
+probe reads it, and the brick probe is not ported.
 
 Tensors are updated in place where the JAX code builds a new array: the
 map is the single owner of its storage.
@@ -23,6 +24,12 @@ import torch
 
 from pin_slam_tpu_torch.ops import hash3d
 from pin_slam_tpu_torch.ops.scatter import index_add_exact, scatter_set_last
+from pin_slam_tpu_torch.ops.transforms import (
+    quat_multiply,
+    quat_rotate,
+    rotmat_to_quat,
+    transform_points_by_ts,
+)
 from pin_slam_tpu_torch.ops.voxel import (
     compact_rows,
     voxel_down_sample_hash_mask,
@@ -383,6 +390,31 @@ def idw_weights(qn: QueryNeighbors, eps: float = 1e-15,
     return w / (torch.sum(w, dim=1, keepdim=True) + eps)
 
 
+def gather_feature_vectors(state: MapState, qn: QueryNeighbors,
+                           qpts: torch.Tensor, *,
+                           rotate_by_orientation: bool = False
+                           ) -> torch.Tensor:
+    """Per-neighbour decoder inputs [N, k, F+3]: the neighbour's feature
+    and the offset (query - neighbour position), rotated into the
+    neighbour's frame after a map deformation; zero offsets for invalid
+    neighbours. The port has no colour features, so there is no colour
+    counterpart."""
+    feats = state.geo_features[qn.idx]
+    vec = qpts[:, None, :] - state.positions[qn.idx]
+    if rotate_by_orientation:
+        vec = quat_rotate(state.orientations[qn.idx], vec)
+    vec = torch.where(qn.valid[..., None], vec, torch.zeros_like(vec))
+    return torch.cat([feats, vec], dim=-1)
+
+
+def queried_certainty(state: MapState, qn: QueryNeighbors,
+                      w: torch.Tensor) -> torch.Tensor:
+    """IDW-interpolated certainty at the queries [N]."""
+    cert = torch.where(qn.valid, state.certainty[qn.idx],
+                       torch.zeros_like(w))
+    return torch.sum(cert * w, dim=1)
+
+
 def accumulate_certainty(state: MapState, qn: QueryNeighbors,
                          w: torch.Tensor, query_ts=None) -> MapState:
     """Add the IDW weights into the neighbors' certainty and raise their
@@ -482,3 +514,42 @@ def rehash(state: MapState, cur_ts, *, resolution: float, use_mid_ts: bool,
                           reduce="amax")
     table[B] = -1
     return state.replace(table=table)
+
+
+def deform_map(state: MapState, pose_diff: torch.Tensor, *,
+               use_mid_ts: bool) -> MapState:
+    """Elastic deformation after a pose-graph solve: each neural point
+    moves by the correction pose_diff [T, 4, 4] of its (mid-)timestamp,
+    clipped to T-1, and its orientation is pre-multiplied by that
+    correction's rotation. The caller rehashes afterwards."""
+    T = pose_diff.shape[0]
+    ts = (torch.div(state.ts_create + state.ts_update, 2,
+                    rounding_mode="floor")
+          if use_mid_ts else state.ts_create)
+    ts = torch.clamp(ts.long(), 0, T - 1)
+    positions = transform_points_by_ts(state.positions, ts, pose_diff)
+    dq = rotmat_to_quat(pose_diff[:, :3, :3])
+    orientations = quat_multiply(dq[ts], state.orientations)
+    return state.replace(positions=positions, orientations=orientations)
+
+
+def grow_capacity(state: MapState, new_capacity: int) -> MapState:
+    """Reallocate every per-point tensor at `new_capacity` + 1 rows: the
+    live rows stay in place, the new rows are zero (orientations too, as
+    in the JAX package: an insert writes the identity) and the dump row
+    stays last. The hash table keeps its size and its row indices."""
+    pad = new_capacity - state.capacity
+
+    def grow(arr):
+        tail = torch.zeros((pad,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                           device=arr.device)
+        return torch.cat([arr[:-1], tail, arr[-1:]], dim=0)
+
+    return state.replace(
+        positions=grow(state.positions),
+        orientations=grow(state.orientations),
+        geo_features=grow(state.geo_features),
+        ts_create=grow(state.ts_create),
+        ts_update=grow(state.ts_update),
+        certainty=grow(state.certainty),
+    )

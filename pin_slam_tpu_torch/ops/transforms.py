@@ -67,6 +67,31 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return points @ T[:3, :3].T + T[:3, 3]
 
 
+def transform_points_batch(points: torch.Tensor,
+                           T: torch.Tensor) -> torch.Tensor:
+    """Apply per-point 4x4 transforms [N, 4, 4] to [N, 3] points."""
+    return torch.einsum("nij,nj->ni", T[:, :3, :3], points) + T[:, :3, 3]
+
+
+def transform_points_by_ts(points: torch.Tensor, ts: torch.Tensor,
+                           diffs: torch.Tensor) -> torch.Tensor:
+    """Transform [N, 3] points by the 4x4 transform of their timestamp,
+    diffs [T, 4, 4], timestamps clipped to [0, T-1]. Twelve [N] coefficient
+    gathers instead of an [N, 4, 4] gather: over a 12M-row replay pool the
+    latter holds 768 MB, these at most a few [N] rows at a time. Each
+    output row sums r0*x + r1*y + r2*z + t in the JAX package's order."""
+    ts = torch.clamp(ts.long(), 0, diffs.shape[0] - 1)
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    out = []
+    for i in range(3):
+        r0 = diffs[:, i, 0][ts]
+        r1 = diffs[:, i, 1][ts]
+        r2 = diffs[:, i, 2][ts]
+        t = diffs[:, i, 3][ts]
+        out.append(r0 * x + r1 * y + r2 * z + t)
+    return torch.stack(out, dim=-1)
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product of batched quaternions [..., 4]."""
     w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
@@ -142,6 +167,40 @@ def np_se3_inv(T: np.ndarray) -> np.ndarray:
     Ti[:3, :3] = T[:3, :3].T
     Ti[:3, 3] = -T[:3, :3].T @ T[:3, 3]
     return Ti
+
+
+def np_rotmat_to_quat(R: np.ndarray) -> np.ndarray:
+    """`rotmat_to_quat` on the host: [..., 3, 3] -> float32 (w, x, y, z),
+    the same formula in float32 (agrees with the device function to float32
+    rounding)."""
+    R = np.asarray(R, np.float32)
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    one, two, four = np.float32(1.0), np.float32(2.0), np.float32(4.0)
+
+    def safe_sqrt(x):
+        return np.sqrt(np.maximum(x, np.float32(1e-12)))
+
+    qw0 = safe_sqrt(one + tr) / two
+    q0 = np.stack([qw0, (m21 - m12) / (four * qw0),
+                   (m02 - m20) / (four * qw0), (m10 - m01) / (four * qw0)], -1)
+    qx1 = safe_sqrt(one + m00 - m11 - m22) / two
+    q1 = np.stack([(m21 - m12) / (four * qx1), qx1,
+                   (m01 + m10) / (four * qx1), (m02 + m20) / (four * qx1)], -1)
+    qy2 = safe_sqrt(one - m00 + m11 - m22) / two
+    q2 = np.stack([(m02 - m20) / (four * qy2), (m01 + m10) / (four * qy2),
+                   qy2, (m12 + m21) / (four * qy2)], -1)
+    qz3 = safe_sqrt(one - m00 - m11 + m22) / two
+    q3 = np.stack([(m10 - m01) / (four * qz3), (m02 + m20) / (four * qz3),
+                   (m12 + m21) / (four * qz3), qz3], -1)
+    cond1 = (m00 > m11) & (m00 > m22)
+    cond2 = m11 > m22
+    q_neg = np.where(cond1[..., None], q1, np.where(cond2[..., None], q2, q3))
+    q = np.where((tr > 0)[..., None], q0, q_neg)
+    n = np.sqrt(np.sum(q * q, axis=-1, keepdims=True))
+    return (q / n).astype(np.float32)
 
 
 def np_slerp_rotmats(R: np.ndarray, ratios: np.ndarray) -> np.ndarray:

@@ -3,13 +3,16 @@
 
   I.   preprocess   — range/z crop + train/source voxel downsample
   II.  odometry     — local-set build + GN registration + pose selection
+  III. loop closure — the caller's `loop_hook` (slam/loop.LoopPgoManager
+                      .after_frame) after the frame's host pull
   IV.  mapping      — sample + map insert + pool append + new-sample
                       detection, then the per-frame training run
 
 The host keeps float64 pose chains and travel distance; the device works in
-float32 with a per-frame anchor (the last sensor position). Loop closure
-and PGO, bundle adjustment, the dynamic filter, colour, semantics and
-localization mode are not ported yet and raise NotImplementedError.
+float32 with a per-frame anchor (the last sensor position). The map grows
+its capacity when it passes 90 % of it. Bundle adjustment, the brick-cache
+probe, the dynamic filter, colour, semantics and localization mode are not
+ported yet and raise NotImplementedError.
 
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
@@ -112,6 +115,9 @@ class PinSLAMSystem:
         # so a synced run's frame time is not the default loop's.
         self._sync_timing = sync_timing
         self.qp = mq.make_query_params(c)
+        # kept for the JAX package's API: the offset rotation by point
+        # orientations is always on (identity until the first deformation)
+        self.after_pgo = False
 
         dev = self.device
         self.state = npm.init_map_state(c.map_capacity, c.buffer_size,
@@ -161,6 +167,13 @@ class PinSLAMSystem:
         self._cur_track_feats = None
         self._prefetch = None
         self._train_loops = {}
+        # False until the first elastic deformation: until then every
+        # orientation is the identity and the training local set carries
+        # none, so its decodes skip the offset rotation
+        self._map_deformed = False
+        # extra mapping iterations requested by an accepted loop closure,
+        # consumed by the next training run
+        self.post_loop_iter_boost_pending = 0
 
         self.local_window_dist = c.local_map_radius * \
             c.local_map_travel_dist_ratio
@@ -174,7 +187,7 @@ class PinSLAMSystem:
             gradient_decimation=c.gradient_decimation,
             main_loss_type=c.main_loss_type,
         )
-        self._track = tk.make_tracker(self.qp, tk.TrackerParams(
+        tp = tk.TrackerParams(
             reg_iter_n=c.reg_iter_n,
             min_grad_norm=c.reg_min_grad_norm,
             max_grad_norm=c.reg_max_grad_norm,
@@ -193,7 +206,11 @@ class PinSLAMSystem:
             eigenvalue_check=c.eigenvalue_check,
             eigenvalue_ratio_thre=c.eigenvalue_ratio_thre,
             weighted_first=c.weighted_first,
-        ))
+        )
+        self._track = tk.make_tracker(self.qp, tp)
+        # a loop closure's re-registration accepts a smaller valid share
+        self._track_loop = tk.make_tracker(
+            self.qp, tp._replace(min_valid_ratio=0.15))
 
     # ------------------------------------------------------------ stages
 
@@ -220,15 +237,17 @@ class PinSLAMSystem:
 
     def build_lset_train(self, travel, cur_ts, reboot_ts):
         """Training local set (travel window), with certainty and update
-        timestamps. Without map deformation all orientations are identity,
-        so the set carries none and every decode skips the rotation."""
+        timestamps. Until the first map deformation all orientations are
+        identity, so the set carries none and every decode skips the
+        rotation; after it the set carries them."""
         c = self.config
         s = self.state
         m = npm.local_map_mask(s, travel, cur_ts, self.local_window_dist,
                                reboot_ts=reboot_ts, use_mid_ts=c.use_mid_ts)
-        return kj.build_local_set(s.positions, m, c.voxel_size_m,
-                                  c.local_set_cap, certainty=s.certainty,
-                                  ts_update=s.ts_update)
+        return kj.build_local_set(
+            s.positions, m, c.voxel_size_m, c.local_set_cap,
+            certainty=s.certainty, ts_update=s.ts_update,
+            orientations=s.orientations if self._map_deformed else None)
 
     def select_pose(self, valid, iters, pose_a, T_init_a, anchor, td, fid):
         """Device-side pose pick (the initial guess on an early failure),
@@ -303,12 +322,13 @@ class PinSLAMSystem:
         src_pts, src_n, src_total = compact(src_keep, c.source_point_cap)
         return train_pts, train_n, src_pts, src_n, train_total, src_total
 
-    def _run_preprocess(self, points: np.ndarray):
-        """Pad to a power of two, upload, and run stage I."""
+    def _run_preprocess(self, points: np.ndarray, cap: Optional[int] = None):
+        """Pad to `cap` rows (default: the next power of two; a longer cloud
+        is cut to `cap`), upload, and run stage I."""
         c = self.config
-        raw, n_raw = _pad_points(
-            np.asarray(points, np.float32),
-            1 << int(np.ceil(np.log2(max(points.shape[0], 2)))))
+        if cap is None:
+            cap = 1 << int(np.ceil(np.log2(max(points.shape[0], 2))))
+        raw, n_raw = _pad_points(np.asarray(points, np.float32), cap)
         max_range_eff = c.max_range
         if c.adaptive_range_on:
             pts = raw[:n_raw]
@@ -401,6 +421,28 @@ class PinSLAMSystem:
     def set_gt_poses(self, gt: np.ndarray):
         self.gt_poses = gt
 
+    def grow_map_capacity(self, factor: int = 2):
+        """Multiply the map capacity by `factor` when the map nears it. The
+        cached local sets and training loops refer to the old capacity and
+        are dropped."""
+        c = self.config
+        new_cap = c.map_capacity * factor
+        if not c.silence:
+            print(f"map capacity {c.map_capacity} -> {new_cap} "
+                  f"(count {int(self.state.count)})")
+        self.state = npm.grow_capacity(self.state, new_cap)
+        c.map_capacity = new_cap
+        self.params["geo_features"] = self.state.geo_features
+        self._train_loops = {}
+        self._cur_lset = None
+        self._cur_track_feats = None
+
+    def set_after_pgo(self, on: bool):
+        """The offset rotation by point orientations is always on (identity
+        quaternions make it a no-op until the first deformation); kept for
+        the JAX package's API."""
+        self.after_pgo = on
+
     def load_map(self, path: str):
         raise NotImplementedError("localization mode is not ported yet")
 
@@ -417,10 +459,11 @@ class PinSLAMSystem:
         [N, 3] in the sensor frame. `next_points` (optional) is the NEXT
         frame's raw cloud: its preprocess is dispatched before this frame's
         host pull and reused when the caller passes the same cloud as
-        frame_id+1's `points`. Returns the pose estimate (4x4 float64)."""
-        if loop_hook is not None or sem_labels is not None:
-            raise NotImplementedError(
-                "loop closure and semantics are not ported yet")
+        frame_id+1's `points`. `loop_hook(frame_id)` runs after the frame's
+        host pull (the loop closure + PGO slot, `timings` column 2). Returns
+        the pose estimate (4x4 float64)."""
+        if sem_labels is not None:
+            raise NotImplementedError("semantics are not ported yet")
         c = self.config
         dev = self.device
         t0 = time.time()
@@ -540,6 +583,10 @@ class PinSLAMSystem:
                 if self.stop_status:
                     cur_iters = max(1, cur_iters - 10)
                 cur_iters = max(1, cur_iters + self.adaptive_iter_offset)
+                if self.post_loop_iter_boost_pending:
+                    # re-converge the SDF around just-deformed geometry
+                    cur_iters += self.post_loop_iter_boost_pending
+                    self.post_loop_iter_boost_pending = 0
                 if (frame_id - self.reboot_ts) == c.freeze_after_frame:
                     self.decoder_freezed = True
                 # the host travel_dist[frame_id] is not set before the pull:
@@ -604,11 +651,16 @@ class PinSLAMSystem:
                         and self.new_obs_ratio > c.new_sample_ratio_restart):
                     self.adaptive_iter_offset = 10
         if pool_cadence and int(flat[0]) > 0.9 * c.map_capacity:
-            raise NotImplementedError(
-                f"map count {int(flat[0])} is past 90% of map_capacity "
-                f"{c.map_capacity}: capacity growth is not ported yet")
+            # capacity watchdog: grow before inserts start dropping points
+            self.grow_map_capacity()
         t4 = time.time()
-        t3 = time.time()     # no loop closure stage in the port yet
+
+        # ---- III. loop closure + PGO, after the pull: the current frame is
+        # already in the map with ts=frame_id, so a closure's deformation
+        # corrects it like every other frame
+        if loop_hook is not None:
+            loop_hook(frame_id)
+        t3 = time.time()
 
         if not lag_pull:
             run_training()
@@ -619,10 +671,11 @@ class PinSLAMSystem:
         self.cur_frame = frame_id + 1
         return self.cur_pose_ref.copy()
 
-    def train(self, iters: int, frame_id: int, td_dev=None):
+    def train(self, iters: int, frame_id: int, td_dev=None, draws=None):
         """Run `iters` mapping iterations with a fresh optimizer over the
         frame's training local set; the set and its trained compact features
-        become the next frame's tracking structure."""
+        become the next frame's tracking structure. `draws` replaces the
+        training loop's random draws (parity tests)."""
         travel = td_dev if td_dev is not None else \
             self._tensor(self.travel_dist[: self.max_frames])
         lset = self.build_lset_train(travel, frame_id, self.reboot_ts)
@@ -630,7 +683,8 @@ class PinSLAMSystem:
                                device=self.device)
         loop = self._get_train_loop(iters, not self.decoder_freezed)
         self.params, self.state, losses = loop(
-            self.params, self.state, self.pool, self.gen, use_new, lset)
+            self.params, self.state, self.pool, self.gen, use_new, lset,
+            draws=draws)
         self._cur_lset = lset
         self._cur_track_feats = self.state.geo_features[lset.gidx]
         self.last_train_losses = losses

@@ -50,6 +50,44 @@ def test_mesh_field_kept_and_loaded_alike(field):
     assert seen
 
 
+LOOP_FIELDS = (
+    "global_loop_on", "local_map_context", "loop_with_feature",
+    "min_loop_travel_dist_ratio", "local_map_context_latency",
+    "loop_local_map_by_travel_dist", "loop_local_map_time_window",
+    "local_loop_dist_thre", "context_shape", "npmc_max_dist",
+    "context_cosdist_threshold", "context_virtual_side_count",
+    "context_virtual_step_m", "loop_z_check_on",
+    "loop_dist_drift_ratio_thre", "pgo_on", "pgo_freq", "pgo_max_iter",
+    "pgo_tran_std", "pgo_rot_std",
+    "pgo_loop_tran_std", "pgo_loop_rot_std", "use_reg_cov_mat",
+    "pgo_error_thre_frame", "post_loop_iter_boost")
+
+
+@pytest.mark.parametrize("field", LOOP_FIELDS)
+def test_loop_field_kept_and_loaded_alike(field):
+    """Each field the loop-closure path reads is a field of the port's
+    Config with the JAX package's default, and over every YAML of the repo
+    it loads to the JAX package's value."""
+    assert field in {f.name for f in dataclasses.fields(TConfig)}
+    assert getattr(TConfig().finalize(), field) == \
+        getattr(JConfig().finalize(), field)
+    for path in YAMLS:
+        t, j = TConfig().load(path), JConfig().load(path)
+        assert getattr(t, field) == getattr(j, field), path
+
+
+def test_pgo_section_turns_loop_closure_on():
+    """16 shipped files have a `pgo:` section; with a tracker section each
+    sets pgo_on, in both packages alike (run_kitti.yaml among them)."""
+    on = [os.path.relpath(p, ROOT) for p in YAMLS
+          if TConfig().load(p).pgo_on]
+    assert "config/lidar_slam/run_kitti.yaml" in on
+    assert on == [os.path.relpath(p, ROOT) for p in YAMLS
+                  if JConfig().load(p).pgo_on]
+    assert TConfig().load(os.path.join(
+        ROOT, "config/lidar_slam/run_kitti.yaml")).pgo_freq == 20
+
+
 def test_infer_bs_final_follows_bs():
     c = TConfig()
     c.bs = 16384

@@ -221,3 +221,66 @@ def test_index_add_exact_is_repeatable_on_the_card(cuda):
     for _ in range(3):
         got = index_add_exact(dst.to(cuda), idx.to(cuda), src.to(cuda))
         assert torch.equal(got.cpu(), want)
+
+
+def _closure_case(dev, seed=0, C=1 << 17, P=1 << 20, T=40):
+    """A seeded map (C rows, 90 % alive, over 40 frames), a replay pool of
+    P rows and per-frame corrections [T, 4, 4] of up to ~3 deg / 0.3 m."""
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.ops.transforms import so3_exp
+
+    rng = np.random.RandomState(seed)
+    s = npm.init_map_state(C, 1 << 20, 8, device=dev)
+    n = int(C * 0.9)
+    s.positions[:n] = torch.as_tensor(
+        rng.uniform(-30, 30, (n, 3)).astype(np.float32), device=dev)
+    s.ts_create[:n] = torch.as_tensor(rng.randint(0, T + 3, n), device=dev)
+    s.ts_update[:n] = s.ts_create[:n] + torch.as_tensor(
+        rng.randint(0, 5, n), device=dev)
+    s.count = torch.tensor(n, device=dev)
+    diffs = torch.eye(4, device=dev).repeat(T, 1, 1)
+    diffs[:, :3, :3] = so3_exp(torch.as_tensor(
+        rng.randn(T, 3).astype(np.float32) * 0.03, device=dev))
+    diffs[:, :3, 3] = torch.as_tensor(
+        rng.randn(T, 3).astype(np.float32) * 0.2, device=dev)
+    coord = torch.as_tensor(rng.uniform(-30, 30, (P, 3)).astype(np.float32),
+                            device=dev)
+    pts = torch.as_tensor(rng.randint(0, T + 3, P), device=dev)
+    return s, coord, pts, diffs
+
+
+def _consequences(s, coord, pts, diffs):
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.ops.transforms import transform_points_by_ts
+
+    d = npm.deform_map(s, diffs, use_mid_ts=True)
+    r = npm.rehash(d, diffs.shape[0] - 1, resolution=0.4, use_mid_ts=True)
+    return r, transform_points_by_ts(coord, pts, diffs)
+
+
+@pytest.mark.cuda
+def test_closure_consequences_on_the_card(cuda):
+    """One closure's device work (deform_map, rehash, replay-pool
+    transform) on the card: within 1e-5 of the CPU result (float32
+    rounding of the affine sums may differ), the rehash of the card's
+    deformed map equal to the CPU's rehash of the same positions, and a
+    second run on the card the same bit for bit."""
+    from pin_slam_tpu_torch.models import neural_points as npm
+
+    g1, gc1 = _consequences(*_closure_case(cuda))
+    g2, gc2 = _consequences(*_closure_case(cuda))
+    c1, cc1 = _consequences(*_closure_case("cpu"))
+    torch.cuda.synchronize()
+    for a, b in ((g1.positions, g2.positions),
+                 (g1.orientations, g2.orientations), (g1.table, g2.table),
+                 (gc1, gc2)):
+        assert torch.equal(a, b)
+    for a, b in ((g1.positions, c1.positions),
+                 (g1.orientations, c1.orientations), (gc1, cc1)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5
+    moved = (g1.positions.cpu() - _closure_case("cpu")[0].positions).abs()
+    assert float(moved.max()) > 0.1
+    on_cpu = npm.rehash(
+        c1.replace(positions=g1.positions.cpu()), 39, resolution=0.4,
+        use_mid_ts=True)
+    assert torch.equal(g1.table.cpu(), on_cpu.table)

@@ -36,6 +36,14 @@ def test_mesh_slice_modules_listed(mod):
     assert f"pin_slam_tpu_torch.{mod}" in _modules()
 
 
+@pytest.mark.parametrize("mod", [
+    "slam.loop", "slam.pgo", "slam.loop_detector", "utils.eval_traj"])
+def test_loop_slice_modules_listed(mod):
+    """The modules of the loop-closure slice are walked by the import
+    check below, so none of them loads jax or the JAX package."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
 def test_chip_smoke_imports_torch_package_only():
     import ast
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())

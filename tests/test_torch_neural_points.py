@@ -1,8 +1,11 @@
 """The port's neural point map (pin_slam_tpu_torch.models.neural_points)
 against the JAX package on identical inputs: insert counts and every map
 row 1:1, the local-map mask, the join neighbor query, prune + rehash
-(all exact), IDW weights (<= 1e-6), and the cell-table probe (idx, valid,
-nn_count equal, d2 <= 1e-6)."""
+(all exact), IDW weights (<= 1e-6), the cell-table probe (idx, valid,
+nn_count equal, d2 <= 1e-6), and the loop-closure maintenance: elastic
+deformation (positions and quaternions <= 1e-6), capacity growth (bit for
+bit) and the two readers, gather_feature_vectors and queried_certainty
+(<= 1e-6)."""
 
 import numpy as np
 import pytest
@@ -276,3 +279,87 @@ def test_query_neighbors_brick_is_refused(maps):
                              offsets=th.neighbor_offsets(2, 0.2),
                              resolution=RES, nn_k=6, max_dist2=1.0,
                              probe_mode="brick")
+
+
+def _deform_inputs(maps, nT):
+    """The map with random update timestamps (some past T-1) and random
+    orientations, and per-frame corrections [nT, 4, 4]."""
+    js, _, _ = maps
+    rng = np.random.RandomState(11)
+    s = _np_state(js)
+    n = int(s["count"])
+    s["ts_create"][:n] = rng.randint(0, nT + 4, n)
+    s["ts_update"][:n] = s["ts_create"][:n] + rng.randint(0, 6, n)
+    q = rng.randn(n, 4).astype(np.float32)
+    s["orientations"][:n] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    from pin_slam_tpu.ops import transforms as jt
+    D = np.tile(np.eye(4, dtype=np.float32), (nT, 1, 1))
+    D[:, :3, :3] = np.asarray(jt.so3_exp(jnp.asarray(
+        rng.randn(nT, 3).astype(np.float32) * 0.05)))
+    D[:, :3, 3] = rng.randn(nT, 3) * 0.3
+    return s, D
+
+
+@pytest.mark.parametrize("use_mid", [False, True])
+def test_deform_map(maps, use_mid):
+    """Per-point correction by the (mid-)timestamp clipped to T-1, the
+    quaternion pre-multiplied by the correction's rotation; the dump row
+    moves with timestamp 0 as in the JAX package."""
+    s, D = _deform_inputs(maps, 9)
+    js = maps[0].replace(**{f: jnp.asarray(v) for f, v in s.items()})
+    _, ts = convert.from_jax(None, s, device="cpu")
+    j2 = jnpm.deform_map(js, jnp.asarray(D), use_mid_ts=use_mid)
+    t2 = tnpm.deform_map(ts, torch.as_tensor(D), use_mid_ts=use_mid)
+    np.testing.assert_allclose(t2.positions.numpy(), np.asarray(j2.positions),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(t2.orientations.numpy(),
+                               np.asarray(j2.orientations), atol=1e-6, rtol=0)
+    moved = np.abs(t2.positions.numpy() - s["positions"]).max(1)
+    assert (moved[: int(s["count"])] > 1e-3).mean() > 0.9
+    for f in ("ts_create", "ts_update", "geo_features", "certainty",
+              "table"):
+        np.testing.assert_array_equal(getattr(t2, f).numpy(), s[f])
+    # rehashed afterwards at the newest frame, as a closure does
+    j3 = jnpm.rehash(j2, 8, resolution=RES, use_mid_ts=use_mid)
+    t3 = tnpm.rehash(t2, 8, resolution=RES, use_mid_ts=use_mid)
+    np.testing.assert_array_equal(t3.table.numpy(), np.asarray(j3.table))
+
+
+def test_grow_capacity(maps):
+    js, ts, _ = maps
+    j2 = jnpm.grow_capacity(js, 2 * C)
+    t2 = tnpm.grow_capacity(ts, 2 * C)
+    assert t2.capacity == j2.capacity == 2 * C
+    _assert_same(t2, j2)
+    # live rows in place, dump row last
+    for f in ("positions", "geo_features", "ts_create"):
+        np.testing.assert_array_equal(getattr(t2, f)[:C].numpy(),
+                                      getattr(ts, f)[:C].numpy())
+        np.testing.assert_array_equal(getattr(t2, f)[-1].numpy(),
+                                      getattr(ts, f)[-1].numpy())
+
+
+@pytest.mark.parametrize("rotate", [False, True])
+def test_gather_feature_vectors_and_certainty(maps, rotate):
+    js, _, _ = maps
+    s, _ = _deform_inputs(maps, 9)
+    rng = np.random.RandomState(12)
+    n = int(s["count"])
+    s["geo_features"][:n] = rng.randn(n, F).astype(np.float32)
+    s["certainty"][:n] = rng.rand(n).astype(np.float32) * 5
+    js = js.replace(**{f: jnp.asarray(v) for f, v in s.items()})
+    _, ts = convert.from_jax(None, s, device="cpu")
+    q, _ = _scene(8, n=700, shift=0.1)
+    jq, tq = _cells_both(js, ts, q, 6)
+    assert bool(tq.valid.any()) and not bool(tq.valid.all())
+    jg, jc = jnpm.gather_feature_vectors(js, jq, jnp.asarray(q),
+                                         rotate_by_orientation=rotate)
+    assert jc is None
+    tg = tnpm.gather_feature_vectors(ts, tq, torch.as_tensor(q),
+                                     rotate_by_orientation=rotate)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6,
+                               rtol=0)
+    jw, tw = jnpm.idw_weights(jq), tnpm.idw_weights(tq)
+    np.testing.assert_allclose(
+        tnpm.queried_certainty(ts, tq, tw).numpy(),
+        np.asarray(jnpm.queried_certainty(js, jq, jw)), atol=1e-6, rtol=1e-6)

@@ -57,6 +57,46 @@ class TestTransforms:
             np.asarray(jt.transform_points(jnp.asarray(p), jnp.asarray(T))),
             atol=1e-5)
 
+    def test_transform_points_batch(self):
+        rng = np.random.RandomState(5)
+        T = np.tile(np.eye(4, dtype=np.float32), (200, 1, 1))
+        T[:, :3, :3] = _rand_rot(rng, 200)
+        T[:, :3, 3] = rng.randn(200, 3)
+        p = rng.randn(200, 3).astype(np.float32) * 10
+        np.testing.assert_allclose(
+            tt.transform_points_batch(_t(p), _t(T)).numpy(),
+            np.asarray(jt.transform_points_batch(jnp.asarray(p),
+                                                 jnp.asarray(T))),
+            atol=1e-5)
+
+    def test_transform_points_by_ts(self):
+        """Per-point transforms by timestamp, the timestamps past T-1 and
+        below 0 clipped: within 1e-6 of the JAX package (positions of a few
+        metres, so a float32 ulp is <= 5e-7)."""
+        rng = np.random.RandomState(6)
+        nT = 12
+        D = np.tile(np.eye(4, dtype=np.float32), (nT, 1, 1))
+        D[:, :3, :3] = np.asarray(jt.so3_exp(
+            jnp.asarray(rng.randn(nT, 3).astype(np.float32) * 0.05)))
+        D[:, :3, 3] = rng.randn(nT, 3) * 0.2
+        p = rng.uniform(-3.5, 3.5, (5000, 3)).astype(np.float32)
+        ts = rng.randint(-2, nT + 5, 5000).astype(np.int32)
+        got = tt.transform_points_by_ts(_t(p), _t(ts), _t(D)).numpy()
+        ref = np.asarray(jt.transform_points_by_ts(
+            jnp.asarray(p), jnp.asarray(ts), jnp.asarray(D)))
+        np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+        tc = np.clip(ts, 0, nT - 1)
+        np.testing.assert_allclose(
+            got, np.einsum("nij,nj->ni", D[tc, :3, :3], p) + D[tc, :3, 3],
+            atol=1e-5)
+
+    def test_np_rotmat_to_quat(self):
+        R = _rand_rot(np.random.RandomState(8), 500)
+        np.testing.assert_allclose(
+            tt.np_rotmat_to_quat(R),
+            np.asarray(jt.rotmat_to_quat(jnp.asarray(R))), atol=2.4e-7,
+            rtol=0)
+
     def test_quaternions(self):
         rng = np.random.RandomState(3)
         R = _rand_rot(rng, 50)
