@@ -68,11 +68,52 @@
    pool, the k-NN launches, fps, ATE before and after PGO and the peak
    device memory.
 
+7. Bundle adjustment (`[ba]`): config/lidar_slam/run_ncd_128_s.yaml as
+   shipped (voxel 0.15 m, range 0.5-15 m, weighted_first=False, bs 16384,
+   15 iterations with adaptive_iters, BA every 20 frames over up to 50
+   frames with 80 iterations of 16384 samples, map 2^22, pool 10M, and its
+   `pgo:` section with map_context, run through LoopPgoManager's hook)
+   drives BA_FRAMES frames of an NCD-128-like sensor (Ouster OS0-128: 1024
+   x 128 rays over +-45 deg) on a hand-held walk (0.14 m a frame, the
+   heading turning 1.34 deg a frame) round the island of make_sequence's
+   room, whose far walls lie beyond the 15 m range. Cuts: synthetic scans
+   (no NCD data is in the repo); no sweep, so the config's `deskew` is not
+   exercised (the port has no deskew yet); 40 frames. It fails unless no
+   frame is invalid, BA ran exactly on frames 19 and 39, each BA's last
+   loss is below its first, the pose chain after each BA is BA's output,
+   POOL_SAMPLE pool rows moved by the correction of their own timestamp
+   (float64 host evaluation, to BA_POOL_ATOL_M), the first BA run again
+   from the same state with the same draws gives the same bits, and every
+   pose is within 0.09 m x frames of ground truth. Prints ms/frame on BA
+   frames and the others, BA's device ms, loss curve, largest pose change
+   and the ATE before and after each BA, the point-cap overflow count, map
+   points and peak memory.
+8. The dynamic filter (`[dynamic]`): config/lidar_slam/run_kitti_mos.yaml
+   as shipped (voxel 0.4 m, weighted_first=False, k 6, frame cap 65536,
+   pool 20M, map 2^22, the filter's thresholds) with the visibility test on
+   from origins 10, 30 and 60 frames back (as
+   eval/eval_gauntlet_long.py --dynamic sets it), over DYN_FRAMES HDL-64
+   frames on make_sequence's circle in make_sequence's room plus three
+   spheres of 0.8 m crossing it at 0.15 m a frame. Cuts: min_z -7 m (the
+   floor kept, as in `[loop]`), a 2^18-row local set (as `[loop]`),
+   synthetic scans. It fails unless no frame is invalid, the fused decode
+   kernel was launched once per judged frame, on one frame the kernel's SDF
+   agrees with the plain decode to FUSED_ATOL and the two routes' static
+   masks differ only where the SDF lies within FUSED_ATOL of a threshold,
+   at most MAX_FALSE_DYNAMIC of the static measurements are flagged, and
+   some mover measurement is flagged after frame 10 (truth: a training
+   point within 0.8 + MOVER_MARGIN_M m of a mover's centre). Prints
+   per-frame precision and recall, the filter's device ms, ms/frame and
+   ATE.
+
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
-CUDA device is present or any phase fails.
+CUDA device is present or any phase fails. `--only ba,dynamic` (any of
+slice, mesh, loop, ba, dynamic) runs the build, the kernel checks and the
+phases named, and prints neither line: a quicker check while working.
 """
 
+import argparse
 import json
 import os
 import re
@@ -110,6 +151,16 @@ FLOP_PER_PAIR = 8
 CHUNK_TEST_FLOP = 17
 # per 32-point chunk, its bounding box: 6 reductions of 32 values
 CHUNK_BOX_FLOP = 6 * 31
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BA_FRAMES = 40
+NCD_STEP_M = 0.14              # a walk at 1.4 m/s, scanned at 10 Hz
+NCD_RADIUS_M = 6.0             # 1.34 deg of turn a frame
+BA_POOL_ATOL_M = 1e-4          # float32 transforms of points <= 15 m out
+DYN_FRAMES = 40
+DYN_CHECK_FRAME = 20           # the frame whose filter runs both routes
+MOVER_RADIUS_M = 0.8
+MOVER_MARGIN_M = 0.1
+MAX_FALSE_DYNAMIC = 0.01       # tests/test_visibility.py's bound
 
 
 def log(*a):
@@ -427,10 +478,12 @@ def phase_fused_decode(dev):
     return out
 
 
-def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None):
+def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None,
+               frame_s=None):
     """Drives process_frame over the frames, each frame's successor passed
     as next_points as bench.py does, and `loop_mgr.after_frame` as the loop
-    hook when given. `on_frame(fid)` runs after each frame. Returns the
+    hook when given. `on_frame(fid)` runs after each frame; each frame's
+    host seconds go to the list `frame_s` when given. Returns the
     estimated poses and the steady-state seconds per frame (wall clock from
     the end of the warm-up to the end of the last frame, closed by a device
     sync)."""
@@ -446,6 +499,8 @@ def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None):
             fid, frames[fid], loop_hook=hook,
             next_points=frames[fid + 1] if fid + 1 < len(frames) else None))
         dt = time.time() - t0
+        if frame_s is not None:
+            frame_s.append(dt)
         if fid == WARMUP - 1:
             torch.cuda.synchronize()
             t_steady = time.time()
@@ -474,10 +529,10 @@ def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None):
     return est, steady_s
 
 
-def check_drift(err):
-    if err.max() > MAX_DRIFT_M:
+def check_drift(err, bound=MAX_DRIFT_M):
+    if err.max() > bound:
         raise AssertionError(f"pose error {err.max():.3f} m is past the "
-                             f"drift bound {MAX_DRIFT_M} m")
+                             f"drift bound {bound} m")
 
 
 def phase_slice(frames, poses, dev):
@@ -878,13 +933,441 @@ def phase_loop(frames, poses, dev):
                           pool_ms=pool_ms)
 
 
+def ncd_config(Config):
+    """config/lidar_slam/run_ncd_128_s.yaml as shipped."""
+    return Config().load(os.path.join(ROOT, "config", "lidar_slam",
+                                      "run_ncd_128_s.yaml"))
+
+
+def make_ncd_sequence(n_frames=BA_FRAMES):
+    """An NCD-128-like hand-held walk: an Ouster OS0-128 (1024 x 128 rays
+    over +-45 deg, 50 m of range) carried at NCD_STEP_M a frame round the
+    island of make_sequence's room on a circle of NCD_RADIUS_M, the heading
+    following it (1.34 deg a frame), after a 4-frame ease-in. The room's
+    walls lie 24-46 m out, beyond the configuration's 15 m range; the floor
+    and ceiling 6 m below and above, the island and the pillar ring hold
+    the pose."""
+    from pin_slam_tpu_torch.dataset.synthetic import (
+        SyntheticSequence, circle_trajectory, default_scene,
+        lidar_directions)
+    ramp = np.linspace(0.0, 1.0, 5)[1:]
+    vel = np.ones(n_frames)
+    vel[:4] = ramp * ramp * (3 - 2 * ramp)
+    arc = NCD_STEP_M * vel[:-1].sum()
+    return SyntheticSequence(
+        scene_sdf=default_scene(half_extent=(40.0, 30.0, 6.0)),
+        poses=circle_trajectory(n_frames, radius=NCD_RADIUS_M,
+                                revolutions=arc / (2 * np.pi * NCD_RADIUS_M),
+                                ease_in_frames=4),
+        dirs=lidar_directions(1024, 128, el_range=(-45.0, 45.0)),
+        max_range=50.0)
+
+
+def _ncd_frame(i):
+    return make_ncd_sequence().frame(i)
+
+
+def mos_config(Config):
+    """config/lidar_slam/run_kitti_mos.yaml with the visibility test on as
+    eval/eval_gauntlet_long.py --dynamic sets it, and two cuts: the floor
+    kept (min_z -7 m, as `[loop]`) and a local set sized as `[loop]` sizes
+    it."""
+    cfg = Config().load(os.path.join(ROOT, "config", "lidar_slam",
+                                     "run_kitti_mos.yaml"))
+    cfg.visibility_filter_on = True
+    cfg.visibility_hist_offsets = (10, 30, 60)
+    cfg.min_z = -7.0
+    cfg.local_set_cap = 1 << 18
+    return cfg
+
+
+def make_mos_sequence(n_frames=DYN_FRAMES):
+    """make_sequence's HDL-64 frames on its circle in its room, plus three
+    spheres of MOVER_RADIUS_M crossing the room at 0.15 m a frame. Returns
+    the sequence and the movers' centres [T, 3, 3]."""
+    from pin_slam_tpu_torch.dataset.synthetic import (
+        SyntheticSequence, circle_trajectory, default_scene,
+        lidar_directions, moving_spheres_scene)
+    static = default_scene(half_extent=(40.0, 30.0, 6.0))
+    scene_t, centers = moving_spheres_scene(static, n_frames,
+                                            radius=MOVER_RADIUS_M)
+    seq = SyntheticSequence(
+        scene_sdf=static, scene_sdf_t=scene_t,
+        poses=circle_trajectory(n_frames, radius=6.0,
+                                revolutions=0.008 * n_frames,
+                                ease_in_frames=4),
+        dirs=lidar_directions(1800, 64), max_range=80.0)
+    return seq, centers
+
+
+def _mos_frame(i):
+    return make_mos_sequence()[0].frame(i)
+
+
+def rot_deg(R):
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2,
+                                              -1.0, 1.0))))
+
+
+def _clone_fields(obj):
+    import dataclasses
+    return obj.replace(**{f.name: getattr(obj, f.name).clone()
+                          for f in dataclasses.fields(obj)})
+
+
+def record_ba(system, dev):
+    """Wraps slam/ba.make_ba_loop so that each BA run keeps its inputs'
+    pose chain, a sample of POOL_SAMPLE pool rows, its outputs and its
+    device time. The first run also keeps a copy of everything it read, so
+    that it can be run again after the frames (`repeat_first_ba`). Returns
+    the list the records go to."""
+    import torch
+    from pin_slam_tpu_torch.slam import ba
+
+    make, records = ba.make_ba_loop, []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def make_and_keep(qp, **kw):
+        run = make(qp, **kw)
+
+        def run_and_keep(state, pool, feats, mlp, base, first_opt,
+                         generator, lf, draws=None):
+            n = base.shape[0]
+            prow = torch.randint(0, pool.capacity, (POOL_SAMPLE,),
+                                 device=dev, generator=gen)
+            before = dict(chain=system.pgo_poses[:n].copy(),
+                          pcount=int(pool.count), prow=prow,
+                          pcoord=pool.coord[prow].clone(),
+                          pts=pool.ts[prow].clone())
+            _, scount = ba.collect_surface_samples(pool,
+                                                   ba.SURFACE_SAMPLE_CAP)
+            draws = ba.draw_ba_indices(generator, scount,
+                                       n_iters=kw["n_iters"], bs=kw["bs"])
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = run(state, pool, feats, mlp, base, first_opt, generator,
+                      lf, draws=draws)
+            e1.record()
+            torch.cuda.synchronize()
+            # copies: the system trains the returned features in place
+            rec = dict(frame=n - 1, window=n - first_opt, before=before,
+                       out=tuple(t.clone() for t in out),
+                       ms=e0.elapsed_time(e1),
+                       samples=int(scount))
+            if not records:
+                rec["replay"] = (run, (
+                    _clone_fields(state), _clone_fields(pool), feats.clone(),
+                    mlp, base.clone(), first_opt, None, lf), draws)
+            records.append(rec)
+            return out
+
+        return run_and_keep
+
+    ba.make_ba_loop = make_and_keep
+    return records
+
+
+def repeat_first_ba(records):
+    """The first BA again, from the copy of its inputs and with its draws:
+    True when every output has the same bits."""
+    import torch
+    run, args, draws = records[0].pop("replay")
+    again = run(*args, draws=draws)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(records[0]["out"], again))
+
+
+def check_ba(rec, system):
+    """Right after a BA frame: the chain is BA's output and the sampled
+    pool rows moved by the correction of their timestamp (float64 host
+    evaluation). Returns the figures."""
+    b = rec["before"]
+    n = b["chain"].shape[0]
+    poses = rec["out"][0].cpu().numpy().astype(np.float64)
+    D = np.stack([poses[i] @ np.linalg.inv(b["chain"][i]) for i in range(n)])
+    live = b["prow"].cpu().numpy() < b["pcount"]
+    ts = np.clip(b["pts"].cpu().numpy().astype(np.int64)[live], 0, n - 1)
+    q0 = b["pcoord"].cpu().numpy().astype(np.float64)[live]
+    want = np.einsum("nij,nj->ni", D[ts, :3, :3], q0) + D[ts, :3, 3]
+    got = system.pool.coord[b["prow"]].cpu().numpy().astype(np.float64)[live]
+    return dict(
+        chain_equal=bool(np.array_equal(system.pgo_poses[:n], poses)
+                         and np.array_equal(system.cur_pose_ref, poses[-1])),
+        pool_rows=int(live.sum()), pool_err=float(np.abs(got - want).max()),
+        max_move_m=float(np.linalg.norm(D[:, :3, 3], axis=1).max()),
+        max_turn_deg=max(rot_deg(d[:3, :3]) for d in D))
+
+
+def phase_ba(frames, poses, dev):
+    """run_ncd_128_s.yaml through process_frame with the loop manager's
+    hook: sliding-window bundle adjustment every 20 frames. Returns the k-NN
+    launches and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam import ba
+    from pin_slam_tpu_torch.slam.loop import LoopPgoManager
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+    from pin_slam_tpu_torch.utils.eval_traj import absolute_error
+
+    cfg = ncd_config(Config)
+    n = len(frames)
+    due = [f for f in range(n) if (f + 1) % cfg.ba_freq_frame == 0]
+    system = PinSLAMSystem(cfg, device=dev)
+    system.set_gt_poses(poses)
+    loop_mgr = LoopPgoManager(cfg, system)
+    make_ba_loop = ba.make_ba_loop
+    records = record_ba(system, dev)
+    checks, frame_s = [], []
+
+    def after(fid):
+        if len(records) > len(checks):
+            checks.append(check_ba(records[-1], system))
+
+    torch.cuda.reset_peak_memory_stats()
+    kj.LAUNCHES = 0
+    try:
+        est, steady_s = run_frames(system, frames, poses, "ba",
+                                   loop_mgr=loop_mgr, on_frame=after,
+                                   frame_s=frame_s)
+    finally:
+        ba.make_ba_loop = make_ba_loop
+    launches = kj.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ba_at = [r["frame"] for r in records]
+    repeated = bool(records) and repeat_first_ba(records)
+    for r, c in zip(records, checks):
+        f, losses = r["frame"], r["out"][2].cpu().numpy()
+        m = f + 1
+        ate0, _ = absolute_error(poses[:m], r["before"]["chain"],
+                                 align_on=False)
+        ate1, _ = absolute_error(
+            poses[:m], r["out"][0].cpu().numpy().astype(np.float64),
+            align_on=False)
+        r.update(ate_before=ate0, ate_after=ate1, first=float(losses[0]),
+                 last=float(losses[-1]))
+        log(f"[ba] BA at frame {f}: window {r['window']} frames, "
+            f"{r['samples']} surface samples, {len(losses)} iterations in "
+            f"{r['ms']:.1f} ms on the device; loss {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f} (every 10th: "
+            + " ".join(f"{v:.6f}" for v in losses[::10]) + "); largest pose "
+            f"change {c['max_move_m'] * 100:.3f} cm, {c['max_turn_deg']:.4f} "
+            f"deg; ATE over its frames {ate0 * 100:.3f} -> "
+            f"{ate1 * 100:.3f} cm; chain = BA's output: {c['chain_equal']}; "
+            f"pool rows against the float64 evaluation: max |err| "
+            f"{c['pool_err']:.3g} m over {c['pool_rows']} sampled rows")
+    ba_ms = [frame_s[f] * 1e3 for f in ba_at]
+    other = [t * 1e3 for f, t in enumerate(frame_s)
+             if f not in ba_at and f >= WARMUP]
+    err = np.linalg.norm(est[:, :3, 3] - poses[:n, :3, 3], axis=1)
+    ate, _ = absolute_error(poses[:n], system.pgo_poses[:n], align_on=False)
+    log(f"[ba] {n} frames, {frames[0].shape[0]} points in frame 0: "
+        f"ms/frame on BA frames " + ", ".join(f"{v:.1f}" for v in ba_ms)
+        + f", median of the other steady frames {np.median(other):.1f} "
+        f"(steady state with BA {steady_s * 1e3:.1f} ms/frame); ATE (RMSE, "
+        f"no alignment) {ate * 100:.2f} cm, max {err.max() * 100:.2f} cm; "
+        f"first BA repeated bit for bit: {repeated}; "
+        f"knn_join launches {launches}; point-cap overflow frames "
+        f"{system.cap_overflow_frames} (max ratio "
+        f"{system.cap_overflow_max_ratio:.2f}); {int(system.state.count)} "
+        f"map points; peak device memory {peak:.2f} GiB")
+    if ba_at != due:
+        raise AssertionError(f"[ba] BA ran on frames {ba_at}, not {due}")
+    for r, c in zip(records, checks):
+        if not (np.isfinite(r["last"]) and r["last"] < r["first"]):
+            raise AssertionError(f"[ba] BA at frame {r['frame']} did not "
+                                 f"lower its loss: {r['first']} -> "
+                                 f"{r['last']}")
+        if not c["chain_equal"]:
+            raise AssertionError(f"[ba] the chain after BA at frame "
+                                 f"{r['frame']} is not BA's output")
+        if c["pool_err"] > BA_POOL_ATOL_M or c["pool_rows"] == 0:
+            raise AssertionError(f"[ba] the pool rows did not move by their "
+                                 f"timestamp's correction: {c}")
+    if not repeated:
+        raise AssertionError("[ba] BA from the same state and draws gave "
+                             "other bits")
+    check_drift(err, 0.09 * n)
+    if launches <= 0:
+        raise AssertionError("the BA path never launched the knn_join "
+                             "kernel")
+    return launches, dict(ba_ms=[r["ms"] for r in records],
+                          frame_ms_ba=ba_ms, frame_ms_other=np.median(other),
+                          ate_m=ate)
+
+
+def mover_truth(train_pts, n, pose, centers):
+    """Training points (sensor frame) within MOVER_RADIUS_M +
+    MOVER_MARGIN_M of a mover's centre, on the true pose."""
+    w = train_pts[:n] @ pose[:3, :3].T + pose[:3, 3]
+    d = np.linalg.norm(w[:, None, :] - centers[None], axis=-1)
+    return (d < MOVER_RADIUS_M + MOVER_MARGIN_M).any(1)
+
+
+def phase_dynamic(frames, poses, centers, dev):
+    """run_kitti_mos.yaml (visibility test on) through process_frame with
+    the loop manager's hook, over a room with movers. Returns both kernels'
+    launches on this path and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam import map_query as mq
+    from pin_slam_tpu_torch.slam.loop import LoopPgoManager
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+    from pin_slam_tpu_torch.utils.eval_traj import absolute_error
+
+    cfg = mos_config(Config)
+    n = len(frames)
+    system = PinSLAMSystem(cfg, device=dev)
+    system.set_gt_poses(poses)
+    loop_mgr = LoopPgoManager(cfg, system)
+    real, judged, check = system.dynamic_filter, [], {}
+
+    def filt(pts_world, mask, lf, hist_origins=None, fused=None):
+        out = real(pts_world, mask, lf, hist_origins, fused)
+        judged.append(system.cur_frame)
+        if system.cur_frame == DYN_CHECK_FRAME:
+            # both routes on this frame's inputs; these launches are the
+            # comparison's, not the path's
+            n0 = fd.LAUNCHES
+            with torch.no_grad():
+                a = mq.query_decode(system.params["geo_features"],
+                                    system.params["geo_mlp"], pts_world,
+                                    system.qp, state=system.state, lf=lf,
+                                    fused=True)
+                b = mq.query_decode(system.params["geo_features"],
+                                    system.params["geo_mlp"], pts_world,
+                                    system.qp, state=system.state, lf=lf)
+            plain = real(pts_world, mask, lf, hist_origins, fused=False)
+            v = cfg.voxel_size_m
+            near = torch.zeros_like(mask)
+            for t in (cfg.dynamic_sdf_ratio_thre * v, 1.5 * v, -1.5 * v):
+                near |= (b.sdf - t).abs() <= FUSED_ATOL
+            check.update(
+                rows=int(mask.sum()),
+                sdf_err=float((a.sdf - b.sdf)[mask].abs().max()),
+                differ=int((out != plain).sum()),
+                differ_off_threshold=int(((out != plain) & ~near).sum()),
+                ms=cuda_time_ms(lambda: real(pts_world, mask, lf,
+                                             hist_origins), 5),
+                plain_ms=cuda_time_ms(lambda: real(
+                    pts_world, mask, lf, hist_origins, fused=False), 5),
+                decode_ms=cuda_time_ms(lambda: mq.query_decode(
+                    system.params["geo_features"], system.params["geo_mlp"],
+                    pts_world, system.qp, state=system.state, lf=lf,
+                    fused=True), 5))
+            fd.LAUNCHES = n0
+        return out
+
+    system.dynamic_filter = filt
+    kept = []
+
+    def after(fid):
+        if system.last_static_mask is not None and judged \
+                and judged[-1] == fid:
+            kept.append((fid, system.last_static_mask.clone(),
+                         system.last_train_pts.clone(),
+                         system.last_train_n.clone()))
+
+    torch.cuda.reset_peak_memory_stats()
+    kj.LAUNCHES = 0
+    fd.LAUNCHES = 0
+    est, steady_s = run_frames(system, frames, poses, "dynamic",
+                               loop_mgr=loop_mgr, on_frame=after)
+    knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    tot = dict(static=0, false=0, movers=0, caught=0, caught_late=0)
+    for fid, sm, tp, tn in kept:
+        m = int(tn)
+        static = sm[:m].cpu().numpy()
+        mover = mover_truth(tp.cpu().numpy(), m, poses[fid], centers[fid])
+        flagged = ~static
+        tp_, fp_ = int((flagged & mover).sum()), int((flagged & ~mover).sum())
+        tot["static"] += int((~mover).sum())
+        tot["false"] += fp_
+        tot["movers"] += int(mover.sum())
+        tot["caught"] += tp_
+        if fid > 10:
+            tot["caught_late"] += tp_
+        prec = tp_ / max(tp_ + fp_, 1)
+        rec = tp_ / max(int(mover.sum()), 1)
+        log(f"[dynamic] frame {fid}: {m} points, {int(mover.sum())} on "
+            f"movers, flagged {int(flagged.sum())}: precision {prec:.3f}, "
+            f"recall {rec:.3f}, static flagged {fp_}")
+    false_share = tot["false"] / max(tot["static"], 1)
+    err = np.linalg.norm(est[:, :3, 3] - poses[:n, :3, 3], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    ate_pgo, _ = absolute_error(poses[:n], system.pgo_poses[:n],
+                                align_on=False)
+    log(f"[dynamic] {len(kept)} frames judged; static measurements flagged "
+        f"{tot['false']} of {tot['static']} = {false_share * 100:.3f} % "
+        f"(bound {MAX_FALSE_DYNAMIC * 100:.1f} %); mover measurements "
+        f"flagged {tot['caught']} of {tot['movers']} ({tot['caught_late']} "
+        f"after frame 10); fused_decode launches {fd_launches}, knn_join "
+        f"launches {knn_launches}")
+    log(f"[dynamic] frame {DYN_CHECK_FRAME}'s filter ({check.get('rows')} "
+        f"points): kernel SDF vs plain max |err| {check.get('sdf_err')}, "
+        f"static masks differ on {check.get('differ')} rows "
+        f"({check.get('differ_off_threshold')} off a threshold); filter on "
+        f"the device {check.get('ms', float('nan')):.3f} ms through the "
+        f"kernel, {check.get('plain_ms', float('nan')):.3f} ms through the "
+        f"plain decode; probe + fused decode "
+        f"{check.get('decode_ms', float('nan')):.3f} ms")
+    log(f"[dynamic] steady state: {steady_s * 1e3:.1f} ms/frame = "
+        f"{1 / steady_s:.3f} fps over {n - WARMUP} frames; ATE (RMSE, no "
+        f"alignment) {ate * 100:.2f} cm (PGO poses {ate_pgo * 100:.2f} cm), "
+        f"max {err.max() * 100:.2f} cm; {int(system.state.count)} map "
+        f"points; point-cap overflow frames {system.cap_overflow_frames}; "
+        f"peak device memory {peak:.2f} GiB")
+    n_judged = len(kept)
+    if n_judged != n - 1 or fd_launches != n_judged:
+        raise AssertionError(
+            f"[dynamic] {n_judged} frames judged, fused_decode launched "
+            f"{fd_launches} times: one launch per judged frame expected")
+    if not check or check["sdf_err"] > FUSED_ATOL \
+            or check["differ_off_threshold"] > 0:
+        raise AssertionError(f"[dynamic] the kernel route and the plain "
+                             f"route disagree: {check}")
+    if false_share > MAX_FALSE_DYNAMIC:
+        raise AssertionError(f"[dynamic] {false_share * 100:.3f} % of the "
+                             f"static measurements flagged dynamic")
+    if tot["caught_late"] < 1:
+        raise AssertionError("[dynamic] no mover measurement was flagged "
+                             "after frame 10")
+    check_drift(err, 0.09 * n)
+    if knn_launches <= 0:
+        raise AssertionError("the dynamic path never launched the knn_join "
+                             "kernel")
+    return knn_launches, fd_launches, dict(
+        false_share=false_share, caught=tot["caught"], movers=tot["movers"],
+        ms=steady_s * 1e3, ate_m=ate, filter=check)
+
+
+def make_frames(fn, args):
+    """fn over args in spawned worker processes (frame i of a sequence)."""
+    t0 = time.time()
+    with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.map(fn, args)
+    log(f"[data] {len(frames)} frames of {fn.__name__}, {frames[0].shape[0]} "
+        f"points in frame 0, {time.time() - t0:.1f} s")
+    return frames
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases (slice, mesh, loop, ba, "
+                    "dynamic) after the kernel checks; prints no result")
+    only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from pin_slam_tpu_torch.ops import cuda_build
-    from pin_slam_tpu_torch.ops import knn_join as kj
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -907,28 +1390,42 @@ def main():
             f"{spills}, shared memory "
             + (f"{'/'.join(smem)} B" if smem else "sized at launch"))
 
-    t0 = time.time()
-    seq = make_sequence(N_FRAMES)
-    with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        frames = pool.map(_frame, range(N_FRAMES))
-    log(f"[data] {N_FRAMES} frames, {frames[0].shape[0]} points in frame 0, "
-        f"{time.time() - t0:.1f} s")
+    def want(phase):
+        return not only or phase in only
 
+    seq = make_sequence(N_FRAMES)
+    frames = make_frames(_frame, range(N_FRAMES))
     kres = phase_kernels(frames, seq.poses, dev)
     fres = phase_fused_decode(dev)
-    launches, _ = phase_slice(frames, seq.poses, dev)
-    mesh_knn_launches, fd_launches = phase_mesh(frames, seq.poses,
-                                                seq.scene_sdf, dev)
+    out = {}
+    if want("slice"):
+        out["slice"], _ = phase_slice(frames, seq.poses, dev)
+    if want("mesh"):
+        out["mesh"] = phase_mesh(frames, seq.poses, seq.scene_sdf, dev)
     del frames
     torch.cuda.empty_cache()
-
-    t0 = time.time()
-    lseq = make_loop_sequence()
-    with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        loop_frames = pool.map(_loop_frame,
-                               [(i, {}) for i in range(LOOP_FRAMES)])
-    log(f"[data] {LOOP_FRAMES} loop frames, {time.time() - t0:.1f} s")
-    loop_knn_launches, _ = phase_loop(loop_frames, lseq.poses, dev)
+    if want("loop"):
+        lseq = make_loop_sequence()
+        loop_frames = make_frames(_loop_frame,
+                                  [(i, {}) for i in range(LOOP_FRAMES)])
+        out["loop"], _ = phase_loop(loop_frames, lseq.poses, dev)
+        del loop_frames
+        torch.cuda.empty_cache()
+    if want("ba"):
+        ba_frames = make_frames(_ncd_frame, range(BA_FRAMES))
+        out["ba"], _ = phase_ba(ba_frames, make_ncd_sequence().poses, dev)
+        del ba_frames
+        torch.cuda.empty_cache()
+    if want("dynamic"):
+        mseq, centers = make_mos_sequence()
+        dyn_frames = make_frames(_mos_frame, range(DYN_FRAMES))
+        knn_dyn, fd_dyn, _ = phase_dynamic(dyn_frames, mseq.poses, centers,
+                                           dev)
+        out["dynamic"] = (knn_dyn, fd_dyn)
+    if only:
+        log(f"[only] {', '.join(only)}: done; a partial run prints no "
+            "result")
+        return 0
 
     tr = next(r for r in kres if r["shape"] == "tracker")
     me = next(r for r in fres if r["shape"] == "mesher")
@@ -937,14 +1434,16 @@ def main():
         "route": "cuda",
         "source": "pin_slam_tpu_torch/csrc/knn_join.cu",
         "replaces": "pin_slam_tpu/ops/knn_join.py:142",
-        "launches": launches,
+        "launches": out["slice"],
         "max_abs_err": max(r["max_abs_err"] for r in kres),
         "ms": tr["ms"], "plain_ms": tr["plain_ms"],
         "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None,
         "max_visits": tr["max_visits"],
-        "launches_mesh_path": mesh_knn_launches,
-        "launches_loop_path": loop_knn_launches,
+        "launches_mesh_path": out["mesh"][0],
+        "launches_loop_path": out["loop"],
+        "launches_ba_path": out["ba"],
+        "launches_dynamic_path": out["dynamic"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -955,7 +1454,8 @@ def main():
         "route": "cuda",
         "source": "pin_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "pin_slam_tpu/ops/pallas_decode.py:31",
-        "launches": fd_launches,
+        "launches": out["mesh"][1],
+        "launches_dynamic_path": out["dynamic"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

@@ -2,11 +2,12 @@
 
 The port's own copy of the part of `pin_slam_tpu/config.py` that its
 join-mode geometry loop, its mesher and its loop closure and pose-graph
-optimisation read: the same field names, defaults and YAML schema, so every
-config file of the repo loads into both packages and gives the same values
-for the fields kept here. Keys of features the port has not ported yet
-(visualisation, map saving, ROS) are ignored; the flags of features whose results it would change
-(semantics, colour, dynamic filter, bundle adjustment, consistency loss,
+optimisation, its sliding-window bundle adjustment and its map-based
+dynamic filter read: the same field names, defaults and YAML schema, so
+every config file of the repo loads into both packages and gives the same
+values for the fields kept here. Keys of features the port has not ported
+yet (visualisation, map saving, ROS) are ignored; the flags of features
+whose results it would change (semantics, colour, consistency loss,
 incidence labels, data parallelism) are loaded so that `PinSLAMSystem`
 refuses them.
 The `tpu` YAML section keeps its name; its static capacities size the
@@ -48,7 +49,24 @@ class Config:
     vox_down_m: float = 0.05
     rand_down_r: float = 1.0
     reboot_frame_thre: int = 5
-    dynamic_filter_on: bool = False    # not ported: refused
+
+    # map-based dynamic filtering
+    dynamic_filter_on: bool = False
+    dynamic_certainty_thre: float = 1.0
+    dynamic_sdf_ratio_thre: float = 0.5
+    dynamic_min_grad_norm_thre: float = 0.25
+    # multi-viewpoint visibility test (ops/visibility.py), judged from the
+    # sensor origins visibility_hist_offsets frames in the past
+    visibility_filter_on: bool = False
+    visibility_bins_az: int = 512
+    visibility_bins_el: int = 64
+    visibility_margin_m: float = 0.4
+    visibility_rel_margin: float = 0.05
+    visibility_min_votes: int = 2
+    visibility_min_certainty: float = 1.0
+    visibility_range_ratio: float = 0.9   # judge only within this * max_range
+    visibility_hist_offsets: tuple = (10, 30, 60)
+    visibility_el_slack_deg: float = 2.0
 
     # ------------------------------------------------------------- neural points
     voxel_size_m: float = 0.3
@@ -119,12 +137,19 @@ class Config:
     # probed once per frame and reused epoch-style by the iterations
     train_subset_hist: int = 65536
     lr: float = 0.01
+    lr_pose: float = 1e-4
+    lr_ba_map: float = 0.01
     adam_eps: float = 1e-15
     adaptive_iters: bool = False
     new_sample_ratio_less: float = 0.02
     new_sample_ratio_more: float = 0.15
     new_sample_ratio_restart: float = 0.3
-    ba_freq_frame: int = 0             # bundle adjustment, not ported: refused
+
+    # bundle adjustment
+    ba_freq_frame: int = 0
+    ba_frame: int = 50
+    ba_iters: int = 80
+    ba_bs: int = 16384
 
     # ------------------------------------------------------------------ tracker
     track_on: bool = False
@@ -266,6 +291,21 @@ class Config:
                 self.vox_down_m = p.get("vox_down_m", self.max_range * 1e-3)
             self.adaptive_range_on = p.get("adaptive_range_on", self.adaptive_range_on)
             self.dynamic_filter_on = p.get("dynamic_filter_on", self.dynamic_filter_on)
+            self.dynamic_certainty_thre = p.get(
+                "dynamic_certainty_thre", self.dynamic_certainty_thre)
+            self.dynamic_sdf_ratio_thre = p.get(
+                "dynamic_sdf_ratio_thre", self.dynamic_sdf_ratio_thre)
+            self.dynamic_min_grad_norm_thre = p.get(
+                "dynamic_min_grad_norm_thre", self.dynamic_min_grad_norm_thre)
+            self.visibility_filter_on = p.get(
+                "visibility_filter_on", self.visibility_filter_on)
+            self.visibility_margin_m = p.get(
+                "visibility_margin_m", self.visibility_margin_m)
+            self.visibility_min_certainty = p.get(
+                "visibility_min_certainty", self.visibility_min_certainty)
+            if "visibility_hist_offsets" in p:
+                self.visibility_hist_offsets = tuple(
+                    int(x) for x in p["visibility_hist_offsets"])
 
         sa = args.get("sampler", {})
         if sa:
@@ -407,6 +447,11 @@ class Config:
                 "train_subset_hist", self.train_subset_hist))
             self.lr = float(o.get("learning_rate", self.lr))
             self.ba_freq_frame = o.get("ba_freq_frame", 0)
+            self.ba_frame = o.get("ba_local_frame", self.ba_frame)
+            self.lr_pose = float(o.get("lr_pose_ba", self.lr_pose))
+            self.lr_ba_map = float(o.get("lr_map_ba", self.lr))
+            self.ba_iters = int(o.get("ba_iters", self.ba_iters))
+            self.ba_bs = int(o.get("ba_bs", self.ba_bs))
             if self.ba_freq_frame > 0:
                 self.stop_frame_thre = self.end_frame
 

@@ -175,6 +175,37 @@ def gather_rows_splitgrad(nodiff_cols: torch.Tensor, feats: torch.Tensor,
     return _GatherSplitGrad.apply(nodiff_cols, feats, idx)
 
 
+class _GatherExact(torch.autograd.Function):
+    """Forward: `feats[idx]`. Backward: the cotangent scatter-added back to
+    the rows in an order-free sum scaled per destination row
+    (`ops.scatter.index_add_exact(per_destination=True)`), so repeated
+    indices sum to the same bits on every run and a row only small
+    cotangents reach keeps them (Adam steps on their sign)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx):
+        ctx.save_for_backward(idx)
+        ctx.fshape = feats.shape
+        return feats[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        d_feats = None
+        if ctx.needs_input_grad[0]:
+            d_feats = index_add_exact(
+                torch.zeros(ctx.fshape, dtype=ct.dtype, device=ct.device),
+                idx.reshape(-1), ct.reshape(-1, ctx.fshape[-1]),
+                per_destination=True)
+        return d_feats, None
+
+
+def gather_rows_exact(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`feats[idx]` whose backward is order-free (bundle adjustment
+    differentiates the whole map's features through it)."""
+    return _GatherExact.apply(feats, idx)
+
+
 def topk_select_mask(d2m: torch.Tensor, k: int) -> torch.Tensor:
     """Exact top-k-smallest selection mask over the last axis with argmin
     first-index ties: rank_i = #candidates that beat i (strictly smaller,
@@ -269,7 +300,7 @@ def query_decode(
         pos = (lset.pts if lset is not None else state.positions)[qn.idx]
         if quat_src is not None:
             quat_g = quat_src[qn.idx]
-        feats_raw = geo_features[qn.idx]
+        feats_raw = gather_rows_exact(geo_features, qn.idx)
     pos_a = pos if anchor is None else pos - anchor
     diff = qpts[:, None, :] - pos_a                      # [N, k, 3]
     dist2 = torch.sum(diff * diff, dim=-1)

@@ -5,14 +5,18 @@
   II.  odometry     — local-set build + GN registration + pose selection
   III. loop closure — the caller's `loop_hook` (slam/loop.LoopPgoManager
                       .after_frame) after the frame's host pull
-  IV.  mapping      — sample + map insert + pool append + new-sample
-                      detection, then the per-frame training run
+  IV.  mapping      — the map-based dynamic filter (`dynamic_filter_on`,
+                      with the visibility test of ops/visibility.py under
+                      `visibility_filter_on`), sample + map insert + pool
+                      append + new-sample detection, then the per-frame
+                      training run, preceded every `ba_freq_frame` frames
+                      by sliding-window bundle adjustment (slam/ba.py)
 
 The host keeps float64 pose chains and travel distance; the device works in
 float32 with a per-frame anchor (the last sensor position). The map grows
-its capacity when it passes 90 % of it. Bundle adjustment, the brick-cache
-probe, the dynamic filter, colour, semantics and localization mode are not
-ported yet and raise NotImplementedError.
+its capacity when it passes 90 % of it. The brick-cache probe, colour,
+semantics, incidence labels, the consistency loss, data parallelism and
+localization mode are not ported yet and raise NotImplementedError.
 
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
@@ -39,10 +43,15 @@ from pin_slam_tpu_torch.ops.transforms import (
     np_slerp_rotmats,
     transform_points,
 )
+from pin_slam_tpu_torch.ops.visibility import (
+    render_min_range_bins,
+    visibility_free_mask,
+)
 from pin_slam_tpu_torch.ops.voxel import voxel_down_sample_hash_mask
 from pin_slam_tpu_torch.slam import map_query as mq
 from pin_slam_tpu_torch.slam import mapper as mp
 from pin_slam_tpu_torch.slam import tracker as tk
+from pin_slam_tpu_torch.slam.ba import run_bundle_adjustment
 
 
 def compute_init_guess(uniform_motion: bool, motion_model: str,
@@ -79,8 +88,6 @@ def _pad_points(pts: np.ndarray, cap: int):
 def _check_supported(c: Config) -> None:
     off = {
         "semantic_on": c.semantic_on, "color_on": c.color_on,
-        "dynamic_filter_on": c.dynamic_filter_on,
-        "ba_freq_frame > 0": c.ba_freq_frame > 0,
         "consistency_loss_on": c.consistency_loss_on,
         "incidence_label_on": c.incidence_label_on,
         "dp_on": c.dp_on,
@@ -89,7 +96,7 @@ def _check_supported(c: Config) -> None:
     if on:
         raise NotImplementedError(
             f"not ported yet: {', '.join(on)} (the port runs the join-mode "
-            "geometry loop only)")
+            "geometry loop, bundle adjustment and the dynamic filter)")
     if c.probe_mode not in ("auto", "join"):
         raise NotImplementedError(
             f"probe_mode={c.probe_mode!r}: the track+map loop implements "
@@ -154,7 +161,13 @@ class PinSLAMSystem:
         self.decoder_freezed = c.decoder_freezed
         self.last_tracking = None
         self.last_train_losses = None
+        self.last_ba_losses = None
         self.last_track_iters = -1
+        # the dynamic filter's last verdict over the train cloud (rows <
+        # last_train_n), kept to score it against mover ground truth
+        self.last_static_mask = None
+        self.last_train_pts = None
+        self.last_train_n = None
         # per-frame [preprocess, odometry, pgo, map-prep, map-opt] seconds
         self.timings = []
         self.new_obs_ratio = 1.0
@@ -343,15 +356,19 @@ class PinSLAMSystem:
 
     def frame_update(self, train_pts, train_n, T, cur_ts, travel_dist,
                      force_all_new: bool, do_map, insert_cap: int,
-                     noise=None):
+                     noise=None, static_mask=None):
         """Sample along the rays, insert map points, append to the pool and
         mark the new samples. `do_map` is a device-side gate: when False
         every sample mask is cleared and the update changes no counts.
-        `noise` replaces the sampler's random draws (parity tests)."""
+        `static_mask` (the dynamic filter's verdict) drops the rows it
+        clears. `noise` replaces the sampler's random draws (parity
+        tests)."""
         c = self.config
         dev = self.device
         mask = (torch.arange(train_pts.shape[0], device=dev) < train_n) \
             & do_map
+        if static_mask is not None:
+            mask = mask & static_mask
         smp = sample_training_points(
             self.gen, train_pts, mask,
             surface_sample_range_m=c.surface_sample_range_m,
@@ -405,6 +422,62 @@ class PinSLAMSystem:
     def filter_pool(self, origin):
         self.pool = mp.filter_pool(self.pool, origin, self.config.window_radius)
 
+    def dynamic_filter(self, pts_world, mask, lf, hist_origins=None,
+                       fused: Optional[bool] = None):
+        """Map-based dynamic filter: [N] bool, True for the rows of `mask`
+        judged static. A measurement where the map decodes confident
+        positive SDF lies in free space and is dynamic. With
+        `visibility_filter_on` and `hist_origins` ([1 + H, 3]: the current
+        origin, which bounds the elevation band, then H historic origins)
+        the visibility test also flags measurements in space the historic
+        scans saw through, except where the map confidently decodes a known
+        surface. Under weighted_first=False the SDF goes through the fused
+        decode kernel (`fused=False` forces the plain decode, for
+        comparisons)."""
+        c = self.config
+        s = self.state
+        if fused is None:
+            fused = not self.qp.weighted_first
+        with torch.no_grad():
+            out = mq.query_decode(self.params["geo_features"],
+                                  self.params["geo_mlp"], pts_world, self.qp,
+                                  state=s, lf=lf, fused=fused)
+            static = (out.certainty < c.dynamic_certainty_thre) | (
+                out.sdf < c.dynamic_sdf_ratio_thre * c.voxel_size_m)
+            if c.visibility_filter_on and hist_origins is not None:
+                d0 = pts_world - hist_origins[0]
+                r0 = torch.linalg.norm(d0, dim=1)
+                el0 = torch.asin(torch.clamp(
+                    d0[:, 2] / torch.clamp(r0, min=1e-6), -1.0, 1.0))
+                el_lo = torch.where(mask, el0,
+                                    torch.full_like(el0, 1e9)).amin()
+                el_hi = torch.where(mask, el0,
+                                    torch.full_like(el0, -1e9)).amax()
+                pvalid = ((torch.arange(s.capacity + 1, device=s.count.device)
+                           < s.count)
+                          & (s.certainty >= c.visibility_min_certainty))
+                img = render_min_range_bins(
+                    hist_origins[1:], s.positions, pvalid,
+                    n_az=c.visibility_bins_az, n_el=c.visibility_bins_el,
+                    el_lo=el_lo, el_hi=el_hi)
+                dyn = visibility_free_mask(
+                    hist_origins[1:], img, pts_world, mask,
+                    margin_m=c.visibility_margin_m,
+                    rel_margin=c.visibility_rel_margin,
+                    min_judge_range=c.min_range,
+                    max_judge_range=c.visibility_range_ratio * c.max_range,
+                    el_lo=el_lo, el_hi=el_hi,
+                    el_slack=float(np.radians(c.visibility_el_slack_deg)),
+                    min_votes=c.visibility_min_votes)
+                # a measurement the map confidently decodes as near-surface
+                # is an established static surface, whatever the coarse
+                # visibility bins say
+                known_surface = ((out.certainty >= c.dynamic_certainty_thre)
+                                 & (torch.abs(out.sdf)
+                                    < 1.5 * c.voxel_size_m))
+                static = static & ~(dyn & ~known_surface)
+        return mask & static
+
     # -------------------------------------------------------------- helpers
 
     def _get_train_loop(self, iters: int, train_decoder: bool):
@@ -417,6 +490,17 @@ class PinSLAMSystem:
                 loss_kwargs=self._loss_kwargs,
                 subset_hist=c.train_subset_hist)
         return self._train_loops[k]
+
+    def _lf(self, cur_ts: int, sensor_pos=None) -> mq.LocalFilter:
+        """The travel-window filter of lset-less queries of the whole map
+        (bundle adjustment, the dynamic filter) at frame `cur_ts`."""
+        c = self.config
+        return mq.LocalFilter(
+            travel_dist=self._tensor(self.travel_dist[: self.max_frames]),
+            cur_ts=int(cur_ts), local_window_dist=self.local_window_dist,
+            sensor_pos=None if sensor_pos is None
+            else self._tensor(sensor_pos),
+            local_map_radius=c.local_map_radius, reboot_ts=self.reboot_ts)
 
     def set_gt_poses(self, gt: np.ndarray):
         self.gt_poses = gt
@@ -562,10 +646,30 @@ class PinSLAMSystem:
         if c.prune_map_on and (frame_id + 1 + c.prune_freq_frame // 2) \
                 % c.prune_freq_frame == 0:
             self.prune_and_rehash(frame_id, td_dev)
+        static_mask = None
+        if c.dynamic_filter_on and frame_id > 0:
+            # judge valid rows only (pad rows sit at the sensor origin after
+            # the transform and would widen the elevation band)
+            rows = torch.arange(c.frame_point_cap, device=dev) < train_n
+            hist = None
+            if c.visibility_filter_on:
+                # row 0: the current origin (elevation band only); then the
+                # historic origins, clamped to frame 0 early on
+                orig = np.stack(
+                    [self.pgo_poses[max(frame_id - off, 0)][:3, 3]
+                     for off in c.visibility_hist_offsets])
+                hist = torch.cat([T32_dev[:3, 3][None], self._tensor(orig)])
+            static_mask = self.dynamic_filter(
+                transform_points(train_pts, T32_dev), rows,
+                self._lf(frame_id - 1), hist)
+            self.last_static_mask = static_mask
+            self.last_train_pts = train_pts
+            self.last_train_n = train_n
         new_ratio, new_obs_ratio = self.frame_update(
             train_pts, train_n, T32_dev, frame_id, td_dev,
             force_all_new=system_rebooted, do_map=do_map_dev,
-            insert_cap=(1 << 16) if host_force else (1 << 14))
+            insert_cap=(1 << 16) if host_force else (1 << 14),
+            static_mask=static_mask)
         self.params["geo_features"] = self.state.geo_features
         if pool_cadence:
             self.filter_pool(T32_dev[:3, 3])
@@ -589,12 +693,17 @@ class PinSLAMSystem:
                     self.post_loop_iter_boost_pending = 0
                 if (frame_id - self.reboot_ts) == c.freeze_after_frame:
                     self.decoder_freezed = True
+                if ba_due:
+                    run_bundle_adjustment(self, frame_id)
                 # the host travel_dist[frame_id] is not set before the pull:
                 # pass the device copy select_pose already extended
                 self.train(cur_iters, frame_id,
                            td_dev=td_dev if lag_pull else None)
 
-        lag_pull = not self._sync_timing
+        ba_due = (c.track_on and c.ba_freq_frame > 0
+                  and (frame_id + 1) % c.ba_freq_frame == 0)
+        # bundle adjustment needs this frame's pulled pose
+        lag_pull = not ba_due and not self._sync_timing
         if lag_pull:
             run_training()
 

@@ -120,8 +120,30 @@ def test_unported_yaml_features_are_refused():
     refused = 0
     for path in YAMLS:
         c = TConfig().load(path)
-        if c.semantic_on or c.color_on or c.dynamic_filter_on:
+        if (c.semantic_on or c.color_on or c.incidence_label_on
+                or c.consistency_loss_on or c.dp_on):
             refused += 1
             with pytest.raises(NotImplementedError):
                 PinSLAMSystem(c, device="cpu")
     assert refused > 0
+
+
+@pytest.mark.parametrize("name,check", [
+    ("run_ncd_128_s.yaml", lambda c: c.ba_freq_frame == 20 and c.pgo_on
+     and (c.ba_frame, c.ba_iters, c.ba_bs) == (50, 80, 16384)),
+    ("run_kitti_mos.yaml", lambda c: c.dynamic_filter_on
+     and not c.weighted_first),
+])
+def test_ba_and_dynamic_yamls_build_a_system(name, check):
+    """The shipped bundle-adjustment and dynamic-filter files build a
+    system on the CPU as shipped, apart from their static capacities, cut
+    down so the test holds little memory."""
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    c = TConfig().load(os.path.join(ROOT, "config", "lidar_slam", name))
+    assert check(c)
+    c.map_capacity, c.buffer_size = 1 << 12, 1 << 14
+    c.pool_capacity, c.frame_point_cap = 20_000, 1 << 10
+    c.source_point_cap, c.max_frames = 1 << 8, 64
+    system = PinSLAMSystem(c, device="cpu")
+    assert system.state.capacity == 1 << 12

@@ -284,3 +284,107 @@ def test_closure_consequences_on_the_card(cuda):
         c1.replace(positions=g1.positions.cpu()), 39, resolution=0.4,
         use_mid_ts=True)
     assert torch.equal(g1.table.cpu(), on_cpu.table)
+
+
+def _ba_filter_case(dev, seed=0, weighted_first=False):
+    """A system on `dev` (weighted_first=False: the filter decodes through
+    the fused kernel) holding a seeded map of a 12 m box room's walls with
+    random features, and a replay pool of the walls' surface samples over
+    four frames."""
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.slam import mapper as mp
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    rng = np.random.RandomState(seed)
+    c = Config()
+    c.track_on = True
+    c.weighted_first = weighted_first
+    c.voxel_size_m = 0.4
+    c.map_capacity, c.buffer_size = 1 << 16, 1 << 18
+    c.frame_point_cap, c.source_point_cap, c.max_frames = 1 << 14, 1 << 10, 8
+    c.finalize()
+    c.pool_capacity = 1 << 17
+    system = PinSLAMSystem(c, device=dev)
+    n = 40000
+    walls = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    axis = rng.randint(0, 3, n)
+    walls[np.arange(n), axis] = np.sign(walls[np.arange(n), axis]) * 6.0
+    pts = torch.as_tensor(walls, device=dev)
+    system.state, _ = npm.insert_points(
+        system.state, pts, torch.ones(n, dtype=torch.bool, device=dev), 0,
+        torch.zeros(c.max_frames, device=dev), resolution=c.voxel_size_m,
+        local_window_dist=1e9, force_all_new=True, insert_cap=1 << 16)
+    cnt = int(system.state.count)
+    system.state.geo_features[:cnt] = torch.as_tensor(
+        rng.randn(cnt, c.feature_dim).astype(np.float32), device=dev)
+    system.state.certainty[:cnt] = 5.0
+    system.params["geo_features"] = system.state.geo_features
+    # decoded SDFs spread around the filter's 0.2 m threshold
+    system.params["geo_mlp"]["b"][-1] += 3.6
+    for f in range(4):
+        system.pool = mp.append_samples(
+            system.pool, pts[f::4], torch.zeros(len(pts[f::4]), device=dev),
+            torch.ones(len(pts[f::4]), device=dev),
+            torch.ones(len(pts[f::4]), dtype=torch.bool, device=dev), f)
+        system.odom_poses[f] = np.eye(4)
+    return system, pts
+
+
+@pytest.mark.cuda
+def test_bundle_adjustment_repeats_bit_for_bit_on_the_card(cuda):
+    """Two BA runs from the same state with the same draws give the same
+    bits on the card (the backward pass's repeated-index sums are
+    order-free), and BA lowers its loss."""
+    from pin_slam_tpu_torch.slam import ba
+
+    outs = []
+    for _ in range(2):
+        system, _ = _ba_filter_case(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        loop = ba.make_ba_loop(system.qp, n_iters=8, bs=8192, window=4,
+                               lr_pose=1e-4, lr_map=0.01)
+        outs.append(loop(system.state, system.pool,
+                         system.params["geo_features"],
+                         system.params["geo_mlp"],
+                         system._tensor(system.odom_poses[:4]), 0, gen,
+                         system._lf(3)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    losses = outs[0][2]
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_dynamic_filter_fused_route_matches_plain_on_the_card(cuda):
+    """The filter under weighted_first=False launches the fused decode
+    kernel once; its SDF agrees with the plain decode to 1e-5 and the two
+    routes' static masks differ only where the SDF lies within 1e-5 of a
+    threshold."""
+    from pin_slam_tpu_torch.slam import map_query as mq
+
+    system, pts = _ba_filter_case(cuda)
+    c = system.config
+    rng = np.random.RandomState(1)
+    q = pts[:16384] + torch.as_tensor(
+        rng.randn(16384, 3).astype(np.float32) * 0.3, device=cuda)
+    mask = torch.ones(len(q), dtype=torch.bool, device=cuda)
+    lf = system._lf(0)
+    n0 = tfd.LAUNCHES
+    fused = system.dynamic_filter(q, mask, lf)
+    assert tfd.LAUNCHES == n0 + 1
+    plain = system.dynamic_filter(q, mask, lf, fused=False)
+    assert tfd.LAUNCHES == n0 + 1
+    with torch.no_grad():
+        a = mq.query_decode(system.params["geo_features"],
+                            system.params["geo_mlp"], q, system.qp,
+                            state=system.state, lf=lf, fused=True)
+        b = mq.query_decode(system.params["geo_features"],
+                            system.params["geo_mlp"], q, system.qp,
+                            state=system.state, lf=lf)
+    torch.cuda.synchronize()
+    assert float((a.sdf - b.sdf).abs().max()) <= 1e-5
+    near = (b.sdf - c.dynamic_sdf_ratio_thre * c.voxel_size_m).abs() <= 1e-5
+    assert not bool(((fused != plain) & ~near).any())
+    assert 0 < int((~plain).sum()) < len(q)

@@ -99,7 +99,7 @@ def test_unported_options_raise():
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
-    for opt in ("semantic_on", "dynamic_filter_on"):
+    for opt in ("semantic_on", "incidence_label_on"):
         c = Config()
         setattr(c, opt, True)
         with pytest.raises(NotImplementedError, match=opt):

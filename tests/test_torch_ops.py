@@ -255,3 +255,32 @@ def test_index_add_exact_is_order_free(cols):
     empty = index_add_exact(torch.as_tensor(dst), torch.zeros(0).long(),
                             torch.as_tensor(src[:0]))
     assert torch.equal(empty, torch.as_tensor(dst))
+
+
+def test_index_add_exact_keeps_small_destinations():
+    """With `per_destination`, a destination that only small values reach
+    keeps their sum to float32 rounding, however large the values sent to
+    other destinations, and the sums are the same in any order. (Scaled by
+    the largest value of all, sums 1e-13 of it flush to zero; Adam turns
+    such a gradient into a full step, so the JAX package's float sums and
+    the port's must agree on it.)"""
+    from pin_slam_tpu_torch.ops.scatter import index_add_exact
+
+    rng = np.random.RandomState(5)
+    m = 3000
+    idx = rng.randint(0, 4, m)
+    mag = np.array([1.0, 1e-17, 1e-30, 1e-4])[idx]
+    src = (rng.randn(m, 2) * mag[:, None]).astype(np.float32)
+    want = np.zeros((4, 2))
+    np.add.at(want, idx, src.astype(np.float64))
+    got = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx),
+                          torch.as_tensor(src), per_destination=True)
+    assert (got.numpy() != 0).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    perm = rng.permutation(m)
+    again = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx[perm]),
+                            torch.as_tensor(src[perm]), per_destination=True)
+    assert torch.equal(got, again)
+    flushed = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx),
+                              torch.as_tensor(src))
+    assert (flushed.numpy()[2] == 0).all()
