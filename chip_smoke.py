@@ -106,11 +106,46 @@
    per-frame precision and recall, the filter's device ms, ms/frame and
    ATE.
 
+9. Colour (`[color]`): config/lidar_slam/run_kitti_color.yaml as shipped
+   (voxel 0.4 m, weighted_first=False, k 6, colour channels 3, the
+   tracker's 100 GN iterations with the colour-consistency weight, decoders
+   frozen after frame 40, map 2^22, frame cap 65536, source cap 8192, pool
+   20M, and its `pgo:` section through LoopPgoManager's hook) over
+   COLOR_FRAMES HDL-64 frames of make_sequence's circle and room, coloured
+   by `procedural_color`. Cuts: synthetic scans (`kitti_correct` is not
+   exercised), min_z -7 m (as `[dynamic]`). The
+   tracker takes its uncached path: a local set with colour features built
+   each frame and one k-NN probe every GN iteration. It fails unless no
+   frame is invalid, every pose is within 0.09 m x frames of ground truth,
+   the k-NN kernel launched, the map's colour at SURFACE_PROBES
+   ground-truth surface points (nn_count >= 6, as eval/eval_gauntlet.py
+   scores it) has a mean abs error <= COLOR_MAX_MAE and a correlation >
+   COLOR_MIN_CORR (tests/test_rgbd_semantic.py's bounds), and the colour
+   mesh of the map (a Mesher as `[mesh]` builds it, vertex colours from
+   `vertex_attributes`) launched the fused decode once per grid batch.
+   Then the k-NN kernel at the colour tracker's shape (the last frame's
+   8192-point source cloud, k = 6, against that frame's tracking local set)
+   must be bit-equal to its plain version. Prints ms/frame, GN iterations
+   and k-NN launches a frame, the tracker's share of the host time, ATE,
+   the colour scores, the mesh's vertices and colour error, peak memory.
+10. Semantics (`[semantic]`): config/lidar_slam/run_demo_sem.yaml as
+   shipped (20 classes, range 60 m, 20 GN iterations, map 2^21,
+   weighted_first true) over SEM_FRAMES frames on the same circle in
+   `default_scene_semantic`'s room with its labels per point, through
+   `process_frame(sem_labels=...)`. Cuts: min_z -7 m, synthetic labels in
+   place of SemanticKITTI. Fails unless no frame is invalid, the drift
+   gate holds, the k-NN kernel launched, the fused decode did not (its
+   decode is weighted_first=False's) and the accuracy at SURFACE_PROBES
+   ground-truth surface points is >= SEM_MIN_ACC. Prints ms/frame, ATE,
+   accuracy and per-class IoU, and a semantic mesh with its vertex labels'
+   accuracy.
+
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
-CUDA device is present or any phase fails. `--only ba,dynamic` (any of
-slice, mesh, loop, ba, dynamic) runs the build, the kernel checks and the
-phases named, and prints neither line: a quicker check while working.
+CUDA device is present or any phase fails. `--only color,semantic` (any of
+slice, mesh, loop, ba, dynamic, color, semantic) runs the build, the kernel
+checks and the phases named, and prints neither line: a quicker check
+while working.
 """
 
 import argparse
@@ -161,6 +196,12 @@ DYN_CHECK_FRAME = 20           # the frame whose filter runs both routes
 MOVER_RADIUS_M = 0.8
 MOVER_MARGIN_M = 0.1
 MAX_FALSE_DYNAMIC = 0.01       # tests/test_visibility.py's bound
+COLOR_FRAMES = 30
+SEM_FRAMES = 30
+SURFACE_PROBES = 100_000       # eval/eval_gauntlet.py's colour/label probe
+COLOR_MAX_MAE = 0.08           # tests/test_rgbd_semantic.py's bounds
+COLOR_MIN_CORR = 0.9
+SEM_MIN_ACC = 0.8
 
 
 def log(*a):
@@ -363,57 +404,62 @@ def visit_histogram(visits):
             for a, b in bins}
 
 
-def phase_kernels(frames, poses, dev):
-    """The k-NN kernel against its plain version at the main-path shapes:
-    idx, d2, cnt and visits must be equal."""
+def measure_knn(name, nq, args):
+    """The k-NN kernel against its plain version on prepared inputs: idx,
+    d2, cnt and visits must be equal. Returns the shape's numbers (kernel,
+    plain and bound ms)."""
     import torch
     from pin_slam_tpu_torch.ops import knn_join as kj
 
-    out = []
-    for name, nq, args in knn_cases(frames, poses, dev):
-        qs, lp, tab, bbd, perm, k, md2f = args
-        got = kj._knn_walk_cuda(*args)
-        ref = kj._knn_walk_plain(*args)
-        torch.cuda.synchronize()
-        for nm, a, b in zip(("idx", "d2", "cnt", "visits"), got, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"knn_join {name}: kernel {nm} differs "
-                                     "from the plain version")
-        max_err = float((got[1] - ref[1]).abs().max())
-        visits = int(got[3].sum())
-        max_visits = int(got[3].max())
-        hist = visit_histogram(got[3])
-        ms = cuda_time_ms(lambda: kj._knn_walk_cuda(*args), 50)
-        plain_ms = cuda_time_ms(lambda: kj._knn_walk_plain(*args), 3)
-        nbytes = (qs.numel() * 4 + lp.numel() * 4 + tab.numel() * 4
-                  + bbd.numel() * 4 + perm.numel() * 8       # inputs
-                  + qs.shape[0] * (k * 8 + 4) + tab.shape[0] * 4)  # outputs
-        # the operations this data needs: the distances of the reachable
-        # (warp, chunk) pairs, the chunk tests and the chunks' boxes
-        reach, tested, boxes = knn_needed_work(qs, lp, tab, got[3], md2f)
-        pairs = int(reach.sum()) * 32 * 32
-        flops = (pairs * FLOP_PER_PAIR + tested * 32 * CHUNK_TEST_FLOP
-                 + boxes * CHUNK_BOX_FLOP)
-        longest = int(reach.max()) * 32 * 32
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "operations" if t_ops > t_bytes else "bytes"
-        log(f"[kernels] knn_join {name}: N={nq} (padded {qs.shape[0]}) k={k} "
-            f"L={lp.shape[0]} query tiles={tab.shape[0]}, tile pairs visited="
-            f"{visits}, longest row {max_visits} tiles, query tiles by "
-            f"tiles walked {hist}; reachable (warp, chunk) pairs "
-            f"{int(reach.sum())} of {tested} tested = {pairs} distances, "
-            f"the longest row's {longest}; idx/d2/cnt/visits equal, max "
-            f"|d2 err|={max_err} | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: "
-            f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB), library n/a")
-        out.append(dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=by, max_abs_err=max_err, n=nq, k=k,
-                        visits=visits, max_visits=max_visits,
-                        visit_histogram=hist, distances=pairs,
-                        longest_row_distances=longest))
-    return out
+    qs, lp, tab, bbd, perm, k, md2f = args
+    got = kj._knn_walk_cuda(*args)
+    ref = kj._knn_walk_plain(*args)
+    torch.cuda.synchronize()
+    for nm, a, b in zip(("idx", "d2", "cnt", "visits"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"knn_join {name}: kernel {nm} differs "
+                                 "from the plain version")
+    max_err = float((got[1] - ref[1]).abs().max())
+    visits = int(got[3].sum())
+    max_visits = int(got[3].max())
+    hist = visit_histogram(got[3])
+    ms = cuda_time_ms(lambda: kj._knn_walk_cuda(*args), 50)
+    plain_ms = cuda_time_ms(lambda: kj._knn_walk_plain(*args), 3)
+    nbytes = (qs.numel() * 4 + lp.numel() * 4 + tab.numel() * 4
+              + bbd.numel() * 4 + perm.numel() * 8       # inputs
+              + qs.shape[0] * (k * 8 + 4) + tab.shape[0] * 4)  # outputs
+    # the operations this data needs: the distances of the reachable
+    # (warp, chunk) pairs, the chunk tests and the chunks' boxes
+    reach, tested, boxes = knn_needed_work(qs, lp, tab, got[3], md2f)
+    pairs = int(reach.sum()) * 32 * 32
+    flops = (pairs * FLOP_PER_PAIR + tested * 32 * CHUNK_TEST_FLOP
+             + boxes * CHUNK_BOX_FLOP)
+    longest = int(reach.max()) * 32 * 32
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "operations" if t_ops > t_bytes else "bytes"
+    log(f"[kernels] knn_join {name}: N={nq} (padded {qs.shape[0]}) k={k} "
+        f"L={lp.shape[0]} query tiles={tab.shape[0]}, tile pairs visited="
+        f"{visits}, longest row {max_visits} tiles, query tiles by "
+        f"tiles walked {hist}; reachable (warp, chunk) pairs "
+        f"{int(reach.sum())} of {tested} tested = {pairs} distances, "
+        f"the longest row's {longest}; idx/d2/cnt/visits equal, max "
+        f"|d2 err|={max_err} | kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: "
+        f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB), library n/a")
+    return dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=max_err, n=nq, k=k,
+                visits=visits, max_visits=max_visits,
+                visit_histogram=hist, distances=pairs,
+                longest_row_distances=longest)
+
+
+def phase_kernels(frames, poses, dev):
+    """The k-NN kernel against its plain version at the main-path shapes:
+    idx, d2, cnt and visits must be equal."""
+    return [measure_knn(name, nq, args)
+            for name, nq, args in knn_cases(frames, poses, dev)]
 
 
 def decode_cases(dev):
@@ -479,11 +525,12 @@ def phase_fused_decode(dev):
 
 
 def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None,
-               frame_s=None):
+               frame_s=None, labels=None):
     """Drives process_frame over the frames, each frame's successor passed
     as next_points as bench.py does, and `loop_mgr.after_frame` as the loop
-    hook when given. `on_frame(fid)` runs after each frame; each frame's
-    host seconds go to the list `frame_s` when given. Returns the
+    hook when given; `labels` (per-frame point labels) go in as sem_labels
+    and next_sem_labels. `on_frame(fid)` runs after each frame; each
+    frame's host seconds go to the list `frame_s` when given. Returns the
     estimated poses and the steady-state seconds per frame (wall clock from
     the end of the warm-up to the end of the last frame, closed by a device
     sync)."""
@@ -495,9 +542,13 @@ def run_frames(system, frames, poses, tag, loop_mgr=None, on_frame=None,
         hook = None
         if loop_mgr is not None:
             hook = (lambda f, _p=frames[fid]: loop_mgr.after_frame(f, _p))
+        last = fid + 1 == len(frames)
+        kw = {} if labels is None else dict(
+            sem_labels=labels[fid],
+            next_sem_labels=None if last else labels[fid + 1])
         est.append(system.process_frame(
             fid, frames[fid], loop_hook=hook,
-            next_points=frames[fid + 1] if fid + 1 < len(frames) else None))
+            next_points=None if last else frames[fid + 1], **kw))
         dt = time.time() - t0
         if frame_s is not None:
             frame_s.append(dt)
@@ -1010,9 +1061,11 @@ def rot_deg(R):
 
 
 def _clone_fields(obj):
+    """A copy of a state dataclass; fields it does not hold stay None."""
     import dataclasses
-    return obj.replace(**{f.name: getattr(obj, f.name).clone()
-                          for f in dataclasses.fields(obj)})
+    return obj.replace(**{
+        f.name: None if getattr(obj, f.name) is None
+        else getattr(obj, f.name).clone() for f in dataclasses.fields(obj)})
 
 
 def record_ba(system, dev):
@@ -1347,12 +1400,315 @@ def phase_dynamic(frames, poses, centers, dev):
         ms=steady_s * 1e3, ate_m=ate, filter=check)
 
 
+def color_config(Config):
+    """config/lidar_slam/run_kitti_color.yaml as shipped, the floor kept
+    (min_z -7 m). Its 2^17-row local set holds the run's map (~90k
+    points), so the set is not cut."""
+    cfg = Config().load(os.path.join(ROOT, "config", "lidar_slam",
+                                     "run_kitti_color.yaml"))
+    cfg.min_z = -7.0
+    return cfg
+
+
+def make_color_sequence(n_frames=COLOR_FRAMES):
+    """make_sequence's HDL-64 frames on its circle in its room, each point
+    coloured by `procedural_color` ([N, 6]: x, y, z, r, g, b)."""
+    from pin_slam_tpu_torch.dataset.synthetic import procedural_color
+    seq = make_sequence(n_frames)
+    seq.color_fn = procedural_color
+    return seq
+
+
+def _color_frame(i):
+    return make_color_sequence().frame(i)
+
+
+def sem_config(Config):
+    """config/lidar_slam/run_demo_sem.yaml as shipped, the floor kept
+    (min_z -7 m)."""
+    cfg = Config().load(os.path.join(ROOT, "config", "lidar_slam",
+                                     "run_demo_sem.yaml"))
+    cfg.min_z = -7.0
+    return cfg
+
+
+def make_sem_sequence(n_frames=SEM_FRAMES):
+    """make_sequence's HDL-64 frames on its circle in
+    `default_scene_semantic`'s room (make_sequence's extent). Returns the
+    sequence and the scene's label function (1: shell, 2: pillars, 3:
+    spheres)."""
+    from pin_slam_tpu_torch.dataset.synthetic import (
+        SyntheticSequence, circle_trajectory, default_scene_semantic,
+        lidar_directions)
+    scene, label_fn = default_scene_semantic(half_extent=(40.0, 30.0, 6.0))
+    seq = SyntheticSequence(
+        scene_sdf=scene,
+        poses=circle_trajectory(n_frames, radius=6.0,
+                                revolutions=0.008 * n_frames,
+                                ease_in_frames=4),
+        dirs=lidar_directions(1800, 64), max_range=80.0)
+    return seq, label_fn
+
+
+def _sem_frame(i):
+    seq, label_fn = make_sem_sequence()
+    pts = seq.frame(i)
+    w = pts @ seq.poses[i][:3, :3].T + seq.poses[i][:3, 3]
+    return pts, label_fn(w.astype(np.float64))
+
+
+def gt_surface_points(frames, poses, n=SURFACE_PROBES):
+    """n of the frames' ray-cast hits (exact surface points) in the world
+    frame, drawn with seed 0."""
+    world = np.concatenate([f[:, :3] @ p[:3, :3].T + p[:3, 3]
+                            for f, p in zip(frames, poses)])
+    sel = np.random.RandomState(0).permutation(len(world))[:n]
+    return world[sel].astype(np.float32)
+
+
+def decode_at(system, pts, **heads):
+    """nn_count and the requested heads' outputs at the world points, in
+    batches of 2^14 (as eval/eval_gauntlet.py scores)."""
+    import torch
+    from pin_slam_tpu_torch.slam import map_query as mq
+
+    nn, outs = [], []
+    with torch.no_grad():
+        for b0 in range(0, len(pts), 1 << 14):
+            q = torch.as_tensor(pts[b0: b0 + (1 << 14)], device=system.device)
+            o = mq.query_decode(system.params["geo_features"],
+                                system.params["geo_mlp"], q, system.qp,
+                                state=system.state, **heads)
+            nn.append(o.nn_count.cpu().numpy())
+            outs.append((o.color if o.color is not None
+                         else o.sem_log_prob.argmax(-1)).cpu().numpy())
+    return np.concatenate(nn), np.concatenate(outs)
+
+
+def path_mesher(system, cfg, **kw):
+    """A Mesher built as `[mesh]` builds it (infer_bs_final, the
+    configuration's mc_res_m, cluster filter off)."""
+    from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+    return Mesher(system.qp, MeshConfig(
+        mc_res_m=cfg.mc_res_m, pad_voxel=cfg.pad_voxel,
+        skip_top_voxel=cfg.skip_top_voxel, mc_mask_on=cfg.mc_mask_on,
+        mesh_min_nn=cfg.mesh_min_nn,
+        min_cluster_vertices=cfg.min_cluster_vertices,
+        infer_bs=cfg.infer_bs_final, chunk_m=cfg.mc_res_m * 200), **kw)
+
+
+def phase_color(frames, poses, dev):
+    """run_kitti_color.yaml through process_frame with the loop manager's
+    hook: the uncached colour tracker (a k-NN probe every GN iteration),
+    colour training, the colour of the map at ground-truth surface points,
+    a colour mesh. Returns both kernels' launches on this path, the k-NN
+    kernel at the colour tracker's shape, and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.dataset.synthetic import procedural_color
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.loop import LoopPgoManager
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    cfg = color_config(Config)
+    n = len(frames)
+    system = PinSLAMSystem(cfg, device=dev)
+    system.set_gt_poses(poses)
+    if not system._use_color_track:
+        raise AssertionError("[color] the colour tracker is off")
+    loop_mgr = LoopPgoManager(cfg, system)
+    iters, frame_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    kj.LAUNCHES = 0
+    fd.LAUNCHES = 0
+    est, steady_s = run_frames(
+        system, frames, poses, "color", loop_mgr=loop_mgr, frame_s=frame_s,
+        on_frame=lambda f: iters.append(system.last_track_iters))
+    knn_launches, fd_frames = kj.LAUNCHES, fd.LAUNCHES
+    err = np.linalg.norm(est[:, :3, 3] - poses[:n, :3, 3], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    steady = slice(WARMUP, n)
+    odo_ms = np.asarray(system.timings)[steady, 1] * 1e3
+    track_share = float(np.sum(odo_ms) / (np.sum(frame_s[steady]) * 1e3))
+    log(f"[color] steady state: {steady_s * 1e3:.1f} ms/frame = "
+        f"{1 / steady_s:.3f} fps over {n - WARMUP} frames; GN iterations a "
+        f"frame: mean {np.mean(iters[1:]):.1f}, max {max(iters)}; knn_join "
+        f"launches {knn_launches} ({knn_launches / n:.1f} a frame, "
+        f"{np.mean(iters[1:]) + 1:.1f} expected: one per GN iteration and "
+        f"the training's); the tracker's share of the steady frames' host "
+        f"time {track_share * 100:.1f} % (odometry median "
+        f"{np.median(odo_ms):.1f} ms; it syncs every GN iteration); ATE "
+        f"(RMSE, no alignment) {ate * 100:.2f} cm, max "
+        f"{err.max() * 100:.2f} cm; {int(system.state.count)} map points; "
+        f"point-cap overflow frames {system.cap_overflow_frames}")
+    check_drift(err, 0.09 * n)
+    if knn_launches <= 0:
+        raise AssertionError("[color] the colour path never launched the "
+                             "knn_join kernel")
+
+    # the map's colour at ground-truth surface points (eval_gauntlet's score)
+    probe = gt_surface_points(frames, poses)
+    nn, pc = decode_at(system, probe,
+                       color_features=system.params["color_features"],
+                       color_mlp=system.params["color_mlp"], color_channel=3)
+    gt_c = procedural_color(probe.astype(np.float64)).astype(np.float32)
+    v = nn >= 6
+    e = np.abs(pc[v] - gt_c[v])
+    mae, p90 = float(e.mean()), float(np.percentile(e, 90))
+    corr = float(np.corrcoef(pc[v].ravel(), gt_c[v].ravel())[0, 1])
+    log(f"[color] colour at {len(probe)} ground-truth surface points: "
+        f"coverage (>= 6 neighbours) {v.mean():.4f}, mean abs error "
+        f"{mae:.4f}, p90 {p90:.4f}, correlation {corr:.4f} (bounds: mean "
+        f"{COLOR_MAX_MAE}, correlation > {COLOR_MIN_CORR})")
+
+    # the k-NN kernel at the colour tracker's shape: the last frame's
+    # source cloud on its pose against the frame's tracking local set
+    pre = system._run_preprocess(frames[-1])
+    src, src_n = pre[3], int(pre[5])
+    T = torch.as_tensor(est[-1], dtype=torch.float32, device=dev)
+    rows = torch.arange(src.shape[0], device=dev) < src_n
+    q = torch.where(rows[:, None], src @ T[:3, :3].T + T[:3, 3],
+                    torch.full_like(src, kj.PAD))
+    q = torch.cat([q, torch.full(((-len(q)) % kj.TQ, 3), kj.PAD,
+                                 device=dev)])
+    lset, _, _ = system.build_lset_track(
+        system._tensor(system.travel_dist[: system.max_frames]), n - 1,
+        system._tensor(est[-1][:3, 3]), system.reboot_ts)
+    lp = lset.pts[:-1].contiguous()
+    qs, tab, bbd, perm, md2f = kj.prepare(q, lp, system.qp.join_max_dist2,
+                                          system.qp.resolution)
+    shape = measure_knn("color_tracker", src.shape[0],
+                        (qs, lp, tab, bbd, perm, system.qp.nn_k, md2f))
+
+    # a colour mesh of the map, its vertices coloured by the map
+    mesher = path_mesher(system, cfg, color_channel=3)
+    n0 = fd.LAUNCHES
+    t0 = time.time()
+    verts, faces = mesher.recon_map_mesh(
+        system.state, system.params["geo_features"],
+        system.params["geo_mlp"], filter_isolated=False)
+    colors, _ = mesher.vertex_attributes(
+        system.state, system.params["geo_features"],
+        system.params["geo_mlp"], verts,
+        color_features=system.params["color_features"],
+        color_mlp=system.params["color_mlp"], color_channel=3)
+    torch.cuda.synchronize()
+    mesh_s = time.time() - t0
+    fd_mesh = fd.LAUNCHES - n0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ve = np.abs(colors - procedural_color(verts.astype(np.float64)))
+    log(f"[color] colour mesh: {verts.shape[0]} vertices, {faces.shape[0]} "
+        f"faces, {mesher.n_batches} grid batches on the "
+        f"{mesher.decode_route} route, fused_decode launches {fd_mesh} "
+        f"(frames: {fd_frames}); colour at the vertices: mean abs error "
+        f"{ve.mean():.4f}, p90 {np.percentile(ve, 90):.4f}; mesh + "
+        f"vertex colours {mesh_s:.2f} s; peak device memory {peak:.2f} GiB")
+    if verts.shape[0] == 0 or not np.isfinite(colors).all():
+        raise AssertionError("[color] the colour mesh is empty or "
+                             "non-finite")
+    if mesher.decode_route != "fused_decode" or fd_mesh != mesher.n_batches:
+        raise AssertionError(
+            f"[color] the mesher ran {mesher.n_batches} grid batches on the "
+            f"{mesher.decode_route} route but the fused decode kernel was "
+            f"launched {fd_mesh} times")
+    if not (mae <= COLOR_MAX_MAE and corr > COLOR_MIN_CORR):
+        raise AssertionError(f"[color] colour mean abs error {mae:.4f}, "
+                             f"correlation {corr:.4f}")
+    return knn_launches, fd_frames + fd_mesh, shape, dict(
+        ms=steady_s * 1e3, ate_m=ate, gn_iters=float(np.mean(iters[1:])),
+        knn_per_frame=knn_launches / n, track_share=track_share, mae=mae,
+        p90=p90, corr=corr, coverage=float(v.mean()))
+
+
+def phase_semantic(frames, labels, poses, label_fn, dev):
+    """run_demo_sem.yaml through process_frame(sem_labels=...): semantic
+    training, the map's labels at ground-truth surface points, a semantic
+    mesh. Returns both kernels' launches on this path and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+    from pin_slam_tpu_torch.utils.semantic_kitti_utils import sem_kitti_color
+
+    cfg = sem_config(Config)
+    n = len(frames)
+    system = PinSLAMSystem(cfg, device=dev)
+    system.set_gt_poses(poses)
+    torch.cuda.reset_peak_memory_stats()
+    kj.LAUNCHES = 0
+    fd.LAUNCHES = 0
+    est, steady_s = run_frames(system, frames, poses, "semantic",
+                               labels=labels)
+    knn_launches = kj.LAUNCHES
+    err = np.linalg.norm(est[:, :3, 3] - poses[:n, :3, 3], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    log(f"[semantic] steady state: {steady_s * 1e3:.1f} ms/frame = "
+        f"{1 / steady_s:.3f} fps over {n - WARMUP} frames; ATE (RMSE, no "
+        f"alignment) {ate * 100:.2f} cm, max {err.max() * 100:.2f} cm; "
+        f"knn_join launches {knn_launches} ({knn_launches / n:.1f} a "
+        f"frame); {int(system.state.count)} map points")
+    check_drift(err, 0.09 * n)
+    if knn_launches <= 0:
+        raise AssertionError("[semantic] the semantic path never launched "
+                             "the knn_join kernel")
+
+    probe = gt_surface_points(frames, poses)
+    nn, pred = decode_at(system, probe, sem_mlp=system.params["sem_mlp"])
+    gt = label_fn(probe.astype(np.float64))
+    v = nn >= 6
+    acc = float((pred[v] == gt[v]).mean())
+    ious = {}
+    for cls in (1, 2, 3):
+        inter = float(((pred == cls) & (gt == cls) & v).sum())
+        union = float((((pred == cls) | (gt == cls)) & v).sum())
+        ious[cls] = inter / max(union, 1.0)
+    log(f"[semantic] labels at {len(probe)} ground-truth surface points: "
+        f"coverage {v.mean():.4f}, accuracy {acc:.4f} (bound "
+        f">= {SEM_MIN_ACC}), IoU " + ", ".join(
+            f"class {k} {x:.4f}" for k, x in ious.items())
+        + f", mIoU {np.mean(list(ious.values())):.4f}")
+
+    mesher = path_mesher(system, cfg, semantic_on=True)
+    t0 = time.time()
+    verts, faces = mesher.recon_map_mesh(
+        system.state, system.params["geo_features"],
+        system.params["geo_mlp"], filter_isolated=False)
+    _, vlab = mesher.vertex_attributes(
+        system.state, system.params["geo_features"],
+        system.params["geo_mlp"], verts, sem_mlp=system.params["sem_mlp"])
+    mesh_colors = sem_kitti_color(vlab)
+    torch.cuda.synchronize()
+    mesh_s = time.time() - t0
+    fd_launches = fd.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vacc = float((vlab == label_fn(verts.astype(np.float64))).mean())
+    log(f"[semantic] semantic mesh: {verts.shape[0]} vertices, "
+        f"{faces.shape[0]} faces, {mesher.n_batches} grid batches on the "
+        f"{mesher.decode_route} route; vertex labels' accuracy {vacc:.4f}; "
+        f"mesh + labels {mesh_s:.2f} s; fused_decode launches "
+        f"{fd_launches}; peak device memory {peak:.2f} GiB")
+    if verts.shape[0] == 0 or mesh_colors.shape != (verts.shape[0], 3):
+        raise AssertionError("[semantic] the semantic mesh is empty")
+    if fd_launches != 0:
+        raise AssertionError(f"[semantic] weighted_first=True, yet the "
+                             f"fused decode launched {fd_launches} times")
+    if acc < SEM_MIN_ACC:
+        raise AssertionError(f"[semantic] accuracy {acc:.4f} at the "
+                             f"ground-truth surface")
+    return knn_launches, fd_launches, dict(
+        ms=steady_s * 1e3, ate_m=ate, acc=acc, ious=ious,
+        mesh_acc=vacc, coverage=float(v.mean()))
+
+
 def make_frames(fn, args):
     """fn over args in spawned worker processes (frame i of a sequence)."""
     t0 = time.time()
     with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
         frames = pool.map(fn, args)
-    log(f"[data] {len(frames)} frames of {fn.__name__}, {frames[0].shape[0]} "
+    first = frames[0][0] if isinstance(frames[0], tuple) else frames[0]
+    log(f"[data] {len(frames)} frames of {fn.__name__}, {first.shape[0]} "
         f"points in frame 0, {time.time() - t0:.1f} s")
     return frames
 
@@ -1361,7 +1717,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (slice, mesh, loop, ba, "
-                    "dynamic) after the kernel checks; prints no result")
+                    "dynamic, color, semantic) after the kernel checks; "
+                    "prints no result")
     only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
     if not torch.cuda.is_available():
@@ -1422,6 +1779,23 @@ def main():
         knn_dyn, fd_dyn, _ = phase_dynamic(dyn_frames, mseq.poses, centers,
                                            dev)
         out["dynamic"] = (knn_dyn, fd_dyn)
+        del dyn_frames
+        torch.cuda.empty_cache()
+    if want("color"):
+        col_frames = make_frames(_color_frame, range(COLOR_FRAMES))
+        knn_col, fd_col, col_shape, _ = phase_color(
+            col_frames, make_color_sequence().poses, dev)
+        out["color"] = (knn_col, fd_col)
+        kres.append(col_shape)
+        del col_frames
+        torch.cuda.empty_cache()
+    if want("semantic"):
+        sseq, label_fn = make_sem_sequence()
+        sem = make_frames(_sem_frame, range(SEM_FRAMES))
+        knn_sem, fd_sem, _ = phase_semantic(
+            [f for f, _ in sem], [lab for _, lab in sem], sseq.poses,
+            label_fn, dev)
+        out["semantic"] = (knn_sem, fd_sem)
     if only:
         log(f"[only] {', '.join(only)}: done; a partial run prints no "
             "result")
@@ -1444,6 +1818,8 @@ def main():
         "launches_loop_path": out["loop"],
         "launches_ba_path": out["ba"],
         "launches_dynamic_path": out["dynamic"][0],
+        "launches_color_path": out["color"][0],
+        "launches_semantic_path": out["semantic"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -1456,6 +1832,8 @@ def main():
         "replaces": "pin_slam_tpu/ops/pallas_decode.py:31",
         "launches": out["mesh"][1],
         "launches_dynamic_path": out["dynamic"][1],
+        "launches_color_path": out["color"][1],
+        "launches_semantic_path": out["semantic"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

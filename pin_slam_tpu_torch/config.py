@@ -1,15 +1,15 @@
 """Configuration of the PyTorch port.
 
 The port's own copy of the part of `pin_slam_tpu/config.py` that its
-join-mode geometry loop, its mesher and its loop closure and pose-graph
-optimisation, its sliding-window bundle adjustment and its map-based
-dynamic filter read: the same field names, defaults and YAML schema, so
-every config file of the repo loads into both packages and gives the same
-values for the fields kept here. Keys of features the port has not ported
-yet (visualisation, map saving, ROS) are ignored; the flags of features
-whose results it would change (semantics, colour, consistency loss,
-incidence labels, data parallelism) are loaded so that `PinSLAMSystem`
-refuses them.
+join-mode loop with its colour and semantic mapping, its mesher and its
+loop closure and pose-graph optimisation, its sliding-window bundle
+adjustment and its map-based dynamic filter read: the same field names,
+defaults and YAML schema, so every config file of the repo loads into both
+packages and gives the same values for the fields kept here. Keys of
+features the port has not ported yet (visualisation, map saving, ROS) are
+ignored; the flags of features whose results it would change (consistency
+loss, incidence labels, data parallelism) are loaded so that
+`PinSLAMSystem` refuses them.
 The `tpu` YAML section keeps its name; its static capacities size the
 port's fixed-capacity tensors the same way.
 """
@@ -36,8 +36,17 @@ class Config:
     end_frame: int = 100000
     seed: int = 42
     stop_frame_thre: int = 20
-    semantic_on: bool = False          # not ported: refused
-    color_on: bool = False             # not ported: refused
+
+    # semantic
+    semantic_on: bool = False
+    sem_class_count: int = 20
+    sem_label_decimation: int = 1
+    freespace_label_on: bool = False
+
+    # color / intensity
+    color_map_on: bool = True
+    color_on: bool = False
+    color_channel: int = 0
 
     # ------------------------------------------------------------------ process
     min_range: float = 2.5
@@ -109,6 +118,10 @@ class Config:
     mlp_leaky_relu: bool = False
     geo_mlp_level: int = 1
     geo_mlp_hidden_dim: int = 64
+    sem_mlp_level: int = 1
+    sem_mlp_hidden_dim: int = 64
+    color_mlp_level: int = 1
+    color_mlp_hidden_dim: int = 64
     decoder_freezed: bool = False
     freeze_after_frame: int = 40
     pos_input_dim: int = 3
@@ -126,6 +139,8 @@ class Config:
     num_grad_step_ratio: float = 0.2
     ekional_loss_on: bool = True
     weight_e: float = 0.5
+    weight_s: float = 1.0
+    weight_i: float = 1.0
     consistency_loss_on: bool = False  # not ported: refused
 
     # ---------------------------------------------------------------- optimizer
@@ -162,6 +177,11 @@ class Config:
     motion_damping: float = 0.5
     reg_min_grad_norm: float = 0.5
     reg_max_grad_norm: float = 2.0
+    # colour in the tracker (color_on only): the photometric term, or else
+    # the intensity-consistency weight
+    photometric_loss_on: bool = False
+    photometric_loss_weight: float = 0.01
+    consist_wieght_on: bool = True  # (sic) the reference's key spelling
     track_mask_query_nn_k: int = 6
     max_sdf_std_ratio: float = 1.0
     reg_GM_dist_m: float = 0.3
@@ -271,8 +291,10 @@ class Config:
         s = args.get("setting", {})
         if s:
             self.semantic_on = s.get("semantic_on", self.semantic_on)
-            self.color_on = bool(s.get("color_channel", 0) in (1, 3)
-                                 and s.get("color_map_on", True))
+            self.color_map_on = s.get("color_map_on", self.color_map_on)
+            self.color_channel = s.get("color_channel", 0)
+            self.color_on = bool(self.color_channel in (1, 3)
+                                 and self.color_map_on)
             self.first_frame_ref = s.get("first_frame_ref", self.first_frame_ref)
             self.end_frame = s.get("end_frame", self.end_frame)
             self.seed = s.get("random_seed", self.seed)
@@ -347,6 +369,10 @@ class Config:
             self.geo_mlp_hidden_dim = d.get("mlp_hidden_dim", self.geo_mlp_hidden_dim)
             self.freeze_after_frame = d.get(
                 "freeze_after_frame", self.freeze_after_frame)
+        self.color_mlp_level = self.geo_mlp_level
+        self.color_mlp_hidden_dim = self.geo_mlp_hidden_dim
+        self.sem_mlp_level = self.geo_mlp_level
+        self.sem_mlp_hidden_dim = self.geo_mlp_hidden_dim
 
         lo = args.get("loss", {})
         if lo:
@@ -382,6 +408,14 @@ class Config:
         t = args.get("tracker", {})
         if t:
             self.track_on = True
+            if self.color_on:
+                self.photometric_loss_on = t.get("photo_loss",
+                                                 self.photometric_loss_on)
+                if self.photometric_loss_on:
+                    self.photometric_loss_weight = float(
+                        t.get("photo_weight", self.photometric_loss_weight))
+                self.consist_wieght_on = t.get("consist_wieght",
+                                               self.consist_wieght_on)
             self.uniform_motion_on = t.get("uniform_motion_on", self.uniform_motion_on)
             self.motion_model = t.get("motion_model", self.motion_model)
             self.motion_damping = t.get("motion_damping",

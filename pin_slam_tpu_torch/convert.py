@@ -7,6 +7,10 @@ objects with `np.asarray`), so this module needs nothing of JAX itself:
                              "b": [np.asarray(b) for b in mlp["b"]]}}
     state_np = {f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}
     pool_np = {f: np.asarray(getattr(pool, f)) for f in POOL_FIELDS}
+
+and, where the JAX objects carry them, "color_mlp" / "sem_mlp" in params_np,
+"color_features" in state_np (COLOR_FIELDS) and "sem_label" /
+"color_label" in pool_np (POOL_LABEL_FIELDS).
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
                 "ts_update", "certainty", "count", "table")
 POOL_FIELDS = ("coord", "sdf_label", "weight", "ts", "count", "new_idx",
                "new_count", "write_pos")
+COLOR_FIELDS = ("color_features",)
+POOL_LABEL_FIELDS = ("sem_label", "color_label")
+MLP_NAMES = ("geo_mlp", "color_mlp", "sem_mlp")
 
 
 def mlp_from_numpy(mlp_np, device=None):
@@ -36,8 +43,8 @@ def mlp_from_numpy(mlp_np, device=None):
 
 
 def state_from_numpy(state_np, device=None) -> npm.MapState:
-    """A MapState from numpy arrays of the STATE_FIELDS on `device` (None:
-    the card)."""
+    """A MapState from numpy arrays of the STATE_FIELDS (and the
+    COLOR_FIELDS, when given and not None) on `device` (None: the card)."""
     device = resolve_device(device)
 
     def t(name, dtype):
@@ -53,20 +60,26 @@ def state_from_numpy(state_np, device=None) -> npm.MapState:
         certainty=t("certainty", torch.float32),
         count=t("count", torch.int64),
         table=t("table", torch.int64),
+        color_features=None if state_np.get("color_features") is None
+        else t("color_features", torch.float32),
     )
 
 
 def pool_from_numpy(pool_np, device=None):
     """The replay pool (slam/mapper.PoolState) from numpy arrays of the
-    POOL_FIELDS on `device` (None: the card)."""
+    POOL_FIELDS (and the POOL_LABEL_FIELDS, when given and not None) on
+    `device` (None: the card)."""
     from pin_slam_tpu_torch.slam.mapper import PoolState
 
     device = resolve_device(device)
     dtypes = dict(coord=torch.float32, sdf_label=torch.float32,
-                  weight=torch.float32, ts=torch.int32)
+                  weight=torch.float32, ts=torch.int32,
+                  sem_label=torch.int32, color_label=torch.float32)
+    fields = POOL_FIELDS + tuple(f for f in POOL_LABEL_FIELDS
+                                 if pool_np.get(f) is not None)
     return PoolState(**{
         f: torch.as_tensor(np.array(pool_np[f]), device=device).to(
-            dtypes.get(f, torch.int64)).clone() for f in POOL_FIELDS})
+            dtypes.get(f, torch.int64)).clone() for f in fields})
 
 
 def lset_from_numpy(lset_np: dict, device=None):
@@ -92,18 +105,22 @@ def lset_from_numpy(lset_np: dict, device=None):
 def from_jax(params_np: Optional[dict], state_np: Optional[dict],
              device=None):
     """(params, state) of the port from the JAX package's decoder params
-    ({"geo_mlp": {"w": [...], "b": [...]}}, optional "geo_features") and
-    MapState fields (see STATE_FIELDS), all as numpy arrays. The map's
-    feature array becomes params["geo_features"], as in PinSLAMSystem.
+    ({"geo_mlp": {"w": [...], "b": [...]}}, optional "color_mlp",
+    "sem_mlp" and "geo_features") and MapState fields (see STATE_FIELDS and
+    COLOR_FIELDS), all as numpy arrays. The map's feature arrays become
+    params["geo_features"] (and "color_features"), as in PinSLAMSystem.
     Tensors go to `device`; None means the card, as at every entry point,
     and raises without one."""
     device = resolve_device(device)
     state = None if state_np is None else state_from_numpy(state_np, device)
     params = None
     if params_np is not None:
-        params = {"geo_mlp": mlp_from_numpy(params_np["geo_mlp"], device)}
+        params = {k: mlp_from_numpy(params_np[k], device) for k in MLP_NAMES
+                  if params_np.get(k) is not None}
         if state is not None:
             params["geo_features"] = state.geo_features
+            if state.color_features is not None:
+                params["color_features"] = state.color_features
         elif "geo_features" in params_np:
             params["geo_features"] = torch.as_tensor(
                 np.asarray(params_np["geo_features"], np.float32),

@@ -1,7 +1,7 @@
 """Synthetic LiDAR sequences from analytic SDF scenes (host-side NumPy).
 
-The port's own copy of `pin_slam_tpu/dataset/synthetic.py` (without the
-semantic scene), so the port and its tests need nothing of the JAX package.
+The port's own copy of `pin_slam_tpu/dataset/synthetic.py`, so the port
+and its tests need nothing of the JAX package.
 
 The tests and the chip smoke run ray-cast analytic scenes: ground-truth
 poses and ground-truth SDF are known exactly, so odometry ATE can be
@@ -394,3 +394,38 @@ def make_default_sequence(
         max_range=max_range,
         noise_std=noise_std,
     )
+
+
+def default_scene_semantic(half_extent=(20.0, 14.0, 4.0),
+                           n_ring_pillars: int = 14, seed: int = 7):
+    """`default_scene` plus a ground-truth semantic labeling: returns
+    (scene_sdf, label_fn) where label_fn(world_pts [N,3]) -> [N] int32
+    classes {1: room shell, 2: pillars, 3: spheres} (0 reserved for
+    unlabeled — excluded from the semantic NLL, reference
+    utils/mapper.py:788-793). The label is the argmin-|sdf| primitive."""
+    rng = np.random.RandomState(seed)
+    shell = sdf_box_interior(np.array(half_extent))
+    cylinders = [sdf_cylinder_z([0.0, 0.0], 1.5)]
+    spheres = [sdf_sphere([0.0, 0.0, 3.0], 2.2)]
+    for i in range(n_ring_pillars):
+        ang = 2 * np.pi * i / n_ring_pillars + rng.uniform(-0.15, 0.15)
+        rad = rng.uniform(10.5, 13.0)
+        cx = np.clip(rad * np.cos(ang), -half_extent[0] + 1.5,
+                     half_extent[0] - 1.5)
+        cy = np.clip(rad * np.sin(ang), -half_extent[1] + 1.5,
+                     half_extent[1] - 1.5)
+        r = rng.uniform(0.5, 1.1)
+        cylinders.append(sdf_cylinder_z([cx, cy], r))
+        if i % 3 == 0:
+            spheres.append(
+                sdf_sphere([cx, cy, rng.uniform(1.0, 3.0)], r + 0.6))
+    scene = scene_union(shell, cylinders + spheres)
+
+    def label_fn(p: np.ndarray) -> np.ndarray:
+        d_shell = np.abs(shell(p))
+        d_cyl = np.min(np.stack([np.abs(c(p)) for c in cylinders]), 0)
+        d_sph = np.min(np.stack([np.abs(s(p)) for s in spheres]), 0)
+        return (np.argmin(np.stack([d_shell, d_cyl, d_sph]), 0) + 1
+                ).astype(np.int32)
+
+    return scene, label_fn

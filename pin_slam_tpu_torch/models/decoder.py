@@ -1,5 +1,5 @@
-"""Tiny shared MLP decoder (SDF head). Port of
-`pin_slam_tpu/models/decoder.py` (the geometry head the slice uses).
+"""Tiny shared MLP decoders (SDF, occupancy, semantics, colour). Port of
+`pin_slam_tpu/models/decoder.py`.
 
 Parameters are a plain dict {'w': [W0, W1, ...], 'b': [b0, b1, ...]} with
 W_i of shape [in, out] — the JAX package's layout, so the two convert 1:1.
@@ -46,12 +46,33 @@ def sdf_apply(params, feat: torch.Tensor, sdf_scale: float,
     return mlp_apply(params, feat, leaky)[..., 0] * sdf_scale
 
 
+def occupancy_apply(params, feat: torch.Tensor, sdf_scale: float,
+                    leaky: bool = False) -> torch.Tensor:
+    """Occupancy probability sigmoid(-sdf / sdf_scale)."""
+    return torch.sigmoid(sdf_apply(params, feat, sdf_scale, leaky)
+                         / -sdf_scale)
+
+
+def sem_log_prob_apply(params, feat: torch.Tensor,
+                       leaky: bool = False) -> torch.Tensor:
+    """Log-softmax class probabilities [..., S]."""
+    return torch.log_softmax(mlp_apply(params, feat, leaky), dim=-1)
+
+
+def color_apply(params, feat: torch.Tensor, leaky: bool = False
+                ) -> torch.Tensor:
+    """Sigmoid colour/intensity regression [..., C]."""
+    return torch.sigmoid(mlp_apply(params, feat, leaky))
+
+
 def weighted_reduce(per_nn: torch.Tensor, w: torch.Tensor,
                     with_std: bool = False):
-    """Combine per-neighbor predictions [N, k] with IDW weights [N, k]
-    (the weighted_first=False decode). Returns (mean, std or None)."""
-    mean = torch.sum(per_nn * w, dim=1)
+    """Combine per-neighbor predictions [N, k] or [N, k, D] with IDW weights
+    [N, k] (the weighted_first=False decode). Returns (mean, std or
+    None)."""
+    wb = w[..., None] if per_nn.dim() == 3 else w
+    mean = torch.sum(per_nn * wb, dim=1)
     if not with_std:
         return mean, None
-    var = torch.sum(w * (per_nn - mean[:, None]) ** 2, dim=1)
+    var = torch.sum(wb * (per_nn - mean[:, None]) ** 2, dim=1)
     return mean, torch.sqrt(torch.clamp(var, min=0.0) + 1e-12)

@@ -1,5 +1,4 @@
-"""Mapping losses. Port of `pin_slam_tpu/models/losses.py` (the geometry
-losses). Every loss takes an explicit validity mask so padded batch
+"""Mapping losses. Port of `pin_slam_tpu/models/losses.py`. Every loss takes an explicit validity mask so padded batch
 entries contribute nothing.
 """
 
@@ -58,3 +57,22 @@ def eikonal_loss(grad: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     without neighbors) must not give a NaN backward through sqrt(0)."""
     gn = torch.sqrt(torch.sum(grad * grad, dim=-1) + 1e-12)
     return _masked_mean((gn - 1.0) ** 2, mask)
+
+
+def color_l1_loss(pred: torch.Tensor, label: torch.Tensor,
+                  weight: Optional[torch.Tensor], mask: torch.Tensor,
+                  weighted: bool = False) -> torch.Tensor:
+    """L1 colour regression [N, C] over the rows of `mask`."""
+    per = torch.abs(pred - label)
+    if weighted and weight is not None:
+        per = per * weight[:, None]
+    return _masked_mean(per, mask[:, None].expand_as(per))
+
+
+def sem_nll_loss(log_prob: torch.Tensor, label: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """NLL of the labels [N] under log_prob [N, S] over the rows of
+    `mask`."""
+    label_c = torch.clamp(label.long(), 0, log_prob.shape[-1] - 1)
+    per = -torch.gather(log_prob, 1, label_c[:, None])[:, 0]
+    return _masked_mean(per, mask)

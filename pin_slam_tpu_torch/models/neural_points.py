@@ -1,5 +1,6 @@
 """Fixed-capacity neural point map. Port of
-`pin_slam_tpu/models/neural_points.py`: the join-mode main path, the
+`pin_slam_tpu/models/neural_points.py`: the join-mode main path with its
+colour features, the
 cell-table probe that queries without a local set (the mesher's) uses, and
 the map maintenance of loop closure (elastic deformation, capacity growth).
 
@@ -52,6 +53,7 @@ class MapState:
     certainty: torch.Tensor       # [C+1] f32
     count: torch.Tensor           # [] i64 number of valid points
     table: torch.Tensor           # [B+1] i64 hash table (-1 empty)
+    color_features: Optional[torch.Tensor] = None  # [C+1, F] or None
 
     @property
     def capacity(self) -> int:
@@ -76,7 +78,7 @@ class QueryNeighbors:
 
 
 def init_map_state(capacity: int, table_size: int, feature_dim: int,
-                   device=None) -> MapState:
+                   color_on: bool = False, device=None) -> MapState:
     c1 = capacity + 1
     orient = torch.zeros((c1, 4), dtype=torch.float32, device=device)
     orient[:, 0] = 1.0
@@ -91,6 +93,8 @@ def init_map_state(capacity: int, table_size: int, feature_dim: int,
         count=torch.zeros((), dtype=torch.int64, device=device),
         table=torch.full((table_size + 1,), -1, dtype=torch.int64,
                          device=device),
+        color_features=torch.zeros((c1, feature_dim), dtype=torch.float32,
+                                   device=device) if color_on else None,
     )
 
 
@@ -195,8 +199,10 @@ def insert_points(
     blend(state.ts_create, ts_new)
     blend(state.ts_update, ts_new)
     blend(state.certainty, torch.zeros(icap, device=dev))
-    blend(state.geo_features,
-          torch.zeros((icap, state.geo_features.shape[1]), device=dev))
+    feat_init = torch.zeros((icap, state.geo_features.shape[1]), device=dev)
+    blend(state.geo_features, feat_init)
+    if state.color_features is not None:
+        blend(state.color_features, feat_init)
 
     # hash-table updates for the NEW rows only (voxel winners occupy
     # distinct slots, so no index repeats among the accepted rows)
@@ -391,20 +397,23 @@ def idw_weights(qn: QueryNeighbors, eps: float = 1e-15,
 
 
 def gather_feature_vectors(state: MapState, qn: QueryNeighbors,
-                           qpts: torch.Tensor, *,
-                           rotate_by_orientation: bool = False
-                           ) -> torch.Tensor:
-    """Per-neighbour decoder inputs [N, k, F+3]: the neighbour's feature
-    and the offset (query - neighbour position), rotated into the
-    neighbour's frame after a map deformation; zero offsets for invalid
-    neighbours. The port has no colour features, so there is no colour
-    counterpart."""
+                           qpts: torch.Tensor, *, color: bool = False,
+                           rotate_by_orientation: bool = False):
+    """Per-neighbour decoder inputs: ([N, k, F+3] geometry vectors, [N, k,
+    F+3] colour vectors or None). Each holds the neighbour's feature and
+    the offset (query - neighbour position), rotated into the neighbour's
+    frame after a map deformation; zero offsets for invalid neighbours.
+    The colour vectors come with `color` when the map has colour
+    features."""
     feats = state.geo_features[qn.idx]
     vec = qpts[:, None, :] - state.positions[qn.idx]
     if rotate_by_orientation:
         vec = quat_rotate(state.orientations[qn.idx], vec)
     vec = torch.where(qn.valid[..., None], vec, torch.zeros_like(vec))
-    return torch.cat([feats, vec], dim=-1)
+    color_vec = None
+    if color and state.color_features is not None:
+        color_vec = torch.cat([state.color_features[qn.idx], vec], dim=-1)
+    return torch.cat([feats, vec], dim=-1), color_vec
 
 
 def queried_certainty(state: MapState, qn: QueryNeighbors,
@@ -459,6 +468,8 @@ def _compact(state: MapState, keep: torch.Tensor) -> MapState:
         positions=move(state.positions),
         orientations=move(state.orientations, fill_first=1.0),
         geo_features=move(state.geo_features),
+        color_features=None if state.color_features is None
+        else move(state.color_features),
         ts_create=move(state.ts_create),
         ts_update=move(state.ts_update),
         certainty=move(state.certainty),
@@ -549,6 +560,8 @@ def grow_capacity(state: MapState, new_capacity: int) -> MapState:
         positions=grow(state.positions),
         orientations=grow(state.orientations),
         geo_features=grow(state.geo_features),
+        color_features=None if state.color_features is None
+        else grow(state.color_features),
         ts_create=grow(state.ts_create),
         ts_update=grow(state.ts_update),
         certainty=grow(state.certainty),

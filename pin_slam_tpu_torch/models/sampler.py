@@ -1,11 +1,13 @@
 """Per-ray training-sample generation. Port of
-`pin_slam_tpu/models/sampler.py` (geometry samples).
+`pin_slam_tpu/models/sampler.py` (without the incidence labels).
 
 For each measured endpoint: 1 exact endpoint + `surface_sample_n` Gaussian
 close-to-surface samples + `free_front_n` uniform free-space samples in
 front + `free_behind_n` uniform samples behind the surface, with projective
 SDF labels (positive in front of the surface) and distance weights whose
-sign marks surface (+) vs free space (-). Output is ray-major [N*A].
+sign marks surface (+) vs free space (-). The endpoint and the surface
+samples carry the point's semantic label and colour; the free-space samples
+carry label 0 (unlabeled) and colour 0. Output is ray-major [N*A].
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ class Samples(NamedTuple):
     sdf_label: torch.Tensor   # [N*A] projective SDF labels (m)
     weight: torch.Tensor      # [N*A] signed weights
     mask: torch.Tensor        # [N*A] validity
+    sem_label: Optional[torch.Tensor] = None    # [N*A] i32 or None
+    color_label: Optional[torch.Tensor] = None  # [N*A, C] or None
 
 
 def draw_sample_noise(generator: torch.Generator, n: int, surface_n: int,
@@ -48,6 +52,8 @@ def sample_training_points(
     dist_weight_scale: float,
     behind_dropoff_on: bool = False,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    sem_labels: Optional[torch.Tensor] = None,    # [N] int
+    colors: Optional[torch.Tensor] = None,        # [N, C]
 ) -> Samples:
     """The random draws come from `generator` (see `draw_sample_noise`)
     unless `noise` hands them over, as the parity tests do."""
@@ -96,7 +102,20 @@ def sample_training_points(
         weight = weight * (torch.clamp(dw, 0.0, 1.0) * 0.8 + 0.2)
     weight[:, 1 + s_n:] *= -1.0
 
+    sem_out = None
+    if sem_labels is not None:
+        sem = torch.zeros((n, a), dtype=torch.int32, device=dev)
+        sem[:, : 1 + s_n] = sem_labels[:, None].to(torch.int32)
+        sem_out = sem.reshape(-1)
+    color_out = None
+    if colors is not None:
+        cc = colors.shape[1]
+        col = torch.zeros((n, a, cc), dtype=colors.dtype, device=dev)
+        col[:, : 1 + s_n, :] = colors[:, None, :]
+        color_out = col.reshape(-1, cc)
+
     mask_out = mask[:, None].expand(n, a).reshape(-1)
     return Samples(points=sample_pts.reshape(-1, 3),
                    sdf_label=(-disp).reshape(-1),
-                   weight=weight.reshape(-1), mask=mask_out)
+                   weight=weight.reshape(-1), mask=mask_out,
+                   sem_label=sem_out, color_label=color_out)

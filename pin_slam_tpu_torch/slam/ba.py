@@ -159,6 +159,6 @@ def run_bundle_adjustment(system, frame_id: int,
     system.cur_pose_ref = poses_np[-1]
     system.last_pose_ref = poses_np[-1]
     system.state = system.state.replace(geo_features=feats)
-    system.params["geo_features"] = feats
+    system.sync_feature_params()
     system.last_ba_losses = losses
     return float(losses[-1])

@@ -58,7 +58,7 @@ class LoopPgoManager:
         self._rehash(rehash_ts)
         sysm.pool = sysm.pool.replace(coord=transform_points_by_ts(
             sysm.pool.coord, sysm.pool.ts, diffs))
-        sysm.params["geo_features"] = sysm.state.geo_features
+        sysm.sync_feature_params()
         # the cached post-train local set holds the old positions, and the
         # orientations are no longer the identity: training sets carry them
         sysm._cur_lset = None
@@ -174,11 +174,11 @@ class LoopPgoManager:
         sysm = self.system
         pre = sysm._run_preprocess(points[:, :3],
                                    cap=sysm.config.source_point_cap * 4)
-        src_pts, src_n = pre[2], pre[3]
+        src_pts, src_n = pre[3], pre[5]
         anchor = pose_init[:3, 3].copy()
         T_init = pose_init.copy()
         T_init[:3, 3] -= anchor
-        lset, feats = sysm.build_lset_track(
+        lset, feats, _ = sysm.build_lset_track(
             sysm._tensor(sysm.travel_dist[: sysm.max_frames]), lset_ts,
             sysm._tensor(pose_init[:3, 3]), sysm.reboot_ts)
         mask = torch.arange(src_pts.shape[0], device=sysm.device) < src_n

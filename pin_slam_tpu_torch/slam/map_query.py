@@ -1,8 +1,8 @@
 """Map query + decode. Port of `pin_slam_tpu/slam/map_query.py`: the join
 path of the track+map loop (queries against a per-frame local set) and the
 lset-less path of offline consumers such as the mesher (queries against the
-whole map through the cell-table probe). Colour and semantic heads are not
-ported yet.
+whole map through the cell-table probe), with the colour and semantic
+heads.
 
 Query points may be given in an anchored frame (world minus a host-side
 anchor) for float32 conditioning; `anchor` is added back where absolute
@@ -18,7 +18,12 @@ import numpy as np
 import torch
 
 from pin_slam_tpu_torch.models import neural_points as npm
-from pin_slam_tpu_torch.models.decoder import sdf_apply, weighted_reduce
+from pin_slam_tpu_torch.models.decoder import (
+    color_apply,
+    sdf_apply,
+    sem_log_prob_apply,
+    weighted_reduce,
+)
 from pin_slam_tpu_torch.ops import fused_decode, hash3d
 from pin_slam_tpu_torch.ops.scatter import index_add_exact
 from pin_slam_tpu_torch.ops.transforms import quat_rotate
@@ -105,6 +110,8 @@ class QueryOut(NamedTuple):
     certainty: torch.Tensor       # [N]
     neighbors: npm.QueryNeighbors
     weights: torch.Tensor         # [N, k]
+    color: Optional[torch.Tensor] = None         # [N, C]
+    sem_log_prob: Optional[torch.Tensor] = None  # [N, S]
 
 
 def _maybe_layer_norm(x, on: bool):
@@ -177,15 +184,17 @@ def gather_rows_splitgrad(nodiff_cols: torch.Tensor, feats: torch.Tensor,
 
 class _GatherExact(torch.autograd.Function):
     """Forward: `feats[idx]`. Backward: the cotangent scatter-added back to
-    the rows in an order-free sum scaled per destination row
-    (`ops.scatter.index_add_exact(per_destination=True)`), so repeated
-    indices sum to the same bits on every run and a row only small
-    cotangents reach keeps them (Adam steps on their sign)."""
+    the rows in an order-free sum (`ops.scatter.index_add_exact`), so
+    repeated indices sum to the same bits on every run and a row only small
+    cotangents reach keeps them (Adam steps on their sign): scaled per
+    destination row, or with one scale where it keeps float32's bits and
+    per destination elsewhere."""
 
     @staticmethod
-    def forward(ctx, feats, idx):
+    def forward(ctx, feats, idx, per_destination):
         ctx.save_for_backward(idx)
         ctx.fshape = feats.shape
+        ctx.per_destination = per_destination
         return feats[idx]
 
     @staticmethod
@@ -196,14 +205,18 @@ class _GatherExact(torch.autograd.Function):
             d_feats = index_add_exact(
                 torch.zeros(ctx.fshape, dtype=ct.dtype, device=ct.device),
                 idx.reshape(-1), ct.reshape(-1, ctx.fshape[-1]),
-                per_destination=True)
-        return d_feats, None
+                per_destination=ctx.per_destination)
+        return d_feats, None, None
 
 
-def gather_rows_exact(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """`feats[idx]` whose backward is order-free (bundle adjustment
-    differentiates the whole map's features through it)."""
-    return _GatherExact.apply(feats, idx)
+def gather_rows_exact(feats: torch.Tensor, idx: torch.Tensor,
+                      per_destination: bool = True) -> torch.Tensor:
+    """`feats[idx]` whose backward is order-free. Bundle adjustment
+    differentiates the whole map's features through it with the scale of
+    each destination; the training's colour features take the one scale,
+    re-summing only the destinations it cannot resolve
+    (`per_destination=False`)."""
+    return _GatherExact.apply(feats, idx, per_destination)
 
 
 def topk_select_mask(d2m: torch.Tensor, k: int) -> torch.Tensor:
@@ -237,10 +250,18 @@ def query_decode(
     with_std: bool = False,
     cand=None,                       # ([N, K] ids, [N, K] valid) cached
     cand_pack=None,                  # (nodiff cols, feature array)
+    qperm: Optional[torch.Tensor] = None,   # Morton order of the queries
     fused: bool = False,
+    color_features: Optional[torch.Tensor] = None,  # aligned as geo's
+    color_mlp=None,
+    sem_mlp=None,
+    color_channel: int = 0,
 ) -> QueryOut:
-    """k-NN neural points of `qpts`, then the SDF decode. Differentiable
-    w.r.t. qpts, geo_features and the MLP params.
+    """k-NN neural points of `qpts`, then the SDF decode, and with
+    `color_mlp` + `color_features` the colour head (its first
+    max(color_channel, 1) outputs), with `sem_mlp` the semantic head
+    (log-probabilities). Differentiable w.r.t. qpts, geo_features,
+    color_features and the MLP params.
 
     With `lset` the neighbour search is the spatial join over the local set
     (its filters are baked into the set, `lf` is ignored) and
@@ -255,7 +276,10 @@ def query_decode(
     decode then runs in the fused kernel of `ops/fused_decode.py`, or the
     call raises (with `weighted_first=True`, with `with_std`, or with a
     decoder the kernel does not compute: it takes one hidden layer and a
-    ReLU). The plain decode is never substituted for it."""
+    ReLU). The plain decode is never substituted for it. The colour and
+    semantic heads are plain torch on either route: the colour head's
+    sigmoid per neighbour and the semantic head's log-softmax are not the
+    kernel's function."""
     if fused and (qp.weighted_first or with_std):
         raise ValueError(
             "query_decode: fused=True is the weighted_first=False decode "
@@ -267,7 +291,7 @@ def query_decode(
     elif lset is not None:
         qn = npm.query_neighbors_join(
             q_abs, lset, nn_k=qp.nn_k, max_dist2=qp.join_max_dist2,
-            resolution=qp.resolution, local_ids=True)
+            resolution=qp.resolution, local_ids=True, qperm=qperm)
     elif state is not None:
         kwargs = {}
         if lf is not None:
@@ -336,8 +360,30 @@ def query_decode(
     else:
         per = sdf_apply(geo_mlp, geo_vec, qp.sdf_scale, qp.mlp_leaky_relu)
         sdf, std = weighted_reduce(per, w, with_std=with_std)
+
+    leaky = qp.mlp_leaky_relu
+    sem_log_prob = color = None
+    if sem_mlp is not None:
+        if qp.weighted_first:
+            sem_log_prob = sem_log_prob_apply(sem_mlp, wsum, leaky)
+        else:
+            sem_log_prob, _ = weighted_reduce(
+                sem_log_prob_apply(sem_mlp, geo_vec, leaky), w)
+    if color_mlp is not None and color_features is not None:
+        cfeats = _maybe_layer_norm(
+            gather_rows_exact(color_features, qn.idx, per_destination=False),
+            qp.layer_norm_on)
+        color_vec = torch.cat([cfeats, vec], dim=-1)
+        if qp.weighted_first:
+            color = color_apply(
+                color_mlp, torch.sum(color_vec * w[..., None], dim=1), leaky)
+        else:
+            color, _ = weighted_reduce(
+                color_apply(color_mlp, color_vec, leaky), w)
+        color = color[:, :max(color_channel, 1)]
     return QueryOut(sdf=sdf, sdf_std=std, nn_count=qn.nn_count,
-                    certainty=certainty, neighbors=qn, weights=w)
+                    certainty=certainty, neighbors=qn, weights=w,
+                    color=color, sem_log_prob=sem_log_prob)
 
 
 def query_sdf_and_grad(geo_features, geo_mlp, qpts: torch.Tensor,

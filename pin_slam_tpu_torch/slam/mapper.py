@@ -1,6 +1,6 @@
 """Online mapping: replay pool + per-frame training of the neural map.
-Port of `pin_slam_tpu/slam/mapper.py` on the join path (geometry only,
-one device).
+Port of `pin_slam_tpu/slam/mapper.py` on the join path (one device),
+with the colour and semantic terms.
 
 * The replay pool is a fixed-capacity RING of sample tensors; a frame's
   samples land as one contiguous block and the ring wrap overwrites the
@@ -11,6 +11,9 @@ one device).
   (the reference creates a new optimizer per mapping call), and scattered
   back once. Every iteration's neighbor candidates come from ONE batched
   k-NN probe: map positions do not move during a frame's training.
+* Colour features train beside the geometry features, and the colour and
+  semantic decoders beside the SDF decoder; all three decoders freeze
+  together (`train_decoder=False`).
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ class PoolState:
     new_idx: torch.Tensor      # [NEW_CAP+1] pool rows of the frame's new
     new_count: torch.Tensor    # [] samples, and their count
     write_pos: torch.Tensor    # [] ring position of the next append
+    sem_label: Optional[torch.Tensor] = None    # [P+1] i32 (semantic_on)
+    color_label: Optional[torch.Tensor] = None  # [P+1, Cc] (color_on)
 
     @property
     def capacity(self) -> int:
@@ -52,10 +57,15 @@ class PoolState:
         return replace(self, **kw)
 
 
-def init_pool(capacity: int, new_cap: int, device=None) -> PoolState:
+def init_pool(capacity: int, new_cap: int, semantic_on: bool = False,
+              color_channel: int = 0, device=None) -> PoolState:
     p1 = capacity + 1
     z = dict(dtype=torch.int64, device=device)
     return PoolState(
+        sem_label=torch.zeros(p1, dtype=torch.int32, device=device)
+        if semantic_on else None,
+        color_label=torch.zeros((p1, color_channel), device=device)
+        if color_channel > 0 else None,
         coord=torch.zeros((p1, 3), device=device),
         sdf_label=torch.zeros(p1, device=device),
         weight=torch.zeros(p1, device=device),
@@ -75,9 +85,10 @@ def append_start(pool: PoolState, block_size: int) -> torch.Tensor:
 
 
 def append_samples(pool: PoolState, coord, sdf_label, weight, mask,
-                   cur_ts) -> PoolState:
+                   cur_ts, sem_label=None, color_label=None) -> PoolState:
     """Append this frame's samples as one contiguous block (in place).
-    Masked-out rows are stored as DEAD rows with weight 0."""
+    Masked-out rows are stored as DEAD rows with weight 0. The labels are
+    stored where the pool keeps them."""
     P = pool.capacity
     S = coord.shape[0]
     dev = coord.device
@@ -91,6 +102,10 @@ def append_samples(pool: PoolState, coord, sdf_label, weight, mask,
                                                  torch.zeros_like(weight)))
     pool.ts.index_copy_(0, rows, torch.as_tensor(
         cur_ts, dtype=torch.int32, device=dev).expand(S))
+    if sem_label is not None and pool.sem_label is not None:
+        pool.sem_label.index_copy_(0, rows, sem_label.to(torch.int32))
+    if color_label is not None and pool.color_label is not None:
+        pool.color_label.index_copy_(0, rows, color_label)
     grown = n_rows > 0
     pool.count = torch.where(
         grown, torch.maximum(pool.count, torch.clamp(start + n_rows, max=P)),
@@ -154,18 +169,32 @@ def mapping_loss(geo_features, geo_mlp, batch: dict, mask, cand, cvalid,
                  lset, qp: mq.QueryParams, *, sigma_sigmoid_m: float,
                  loss_weight_on: bool, ekional_loss_on: bool,
                  weight_e: float, numerical_grad_eps: float,
-                 gradient_decimation: int, main_loss_type: str = "bce"):
+                 gradient_decimation: int, main_loss_type: str = "bce",
+                 surface_sample_range_m: float = 0.25,
+                 semantic_on: bool = False, weight_s: float = 1.0,
+                 freespace_label_on: bool = False,
+                 sem_label_decimation: int = 1, color_on: bool = False,
+                 weight_i: float = 1.0, color_channel: int = 0,
+                 color_features=None, color_mlp=None, sem_mlp=None):
     """One training batch's loss against the compact local features
-    (join path with cached candidates). Returns (loss, aux) with aux
-    carrying the certainty-update neighbor info."""
+    (join path with cached candidates): the SDF loss, the eikonal term,
+    and with `semantic_on` the NLL of the labelled samples (label > 0, or
+    >= 0 with `freespace_label_on`), with `color_on` the L1 colour loss of
+    the surface samples (the compact `color_features` and `color_mlp`).
+    Returns (loss, aux) with aux carrying the certainty-update neighbor
+    info."""
     coord = batch["coord"]
     sdf_label = batch["sdf_label"]
     weight = torch.abs(batch["weight"])
     mask = mask & (weight > 0.0)    # weight == 0 marks dead pool rows
 
     cand_pack = (mq.pack_lset_nodiff(lset), geo_features)
-    out = mq.query_decode(geo_features, geo_mlp, coord, qp, lset=lset,
-                          cand=(cand, cvalid), cand_pack=cand_pack)
+    out = mq.query_decode(
+        geo_features, geo_mlp, coord, qp, lset=lset, cand=(cand, cvalid),
+        cand_pack=cand_pack, color_features=color_features,
+        color_mlp=color_mlp if color_on else None,
+        sem_mlp=sem_mlp if semantic_on else None,
+        color_channel=color_channel)
     if main_loss_type == "bce":
         sdf_loss = L.sdf_bce_loss(out.sdf, sdf_label, sigma_sigmoid_m,
                                   weight, mask, weighted=loss_weight_on)
@@ -185,8 +214,24 @@ def mapping_loss(geo_features, geo_mlp, batch: dict, mask, cand, cvalid,
             cand=(cand[::d], cvalid[::d]), cand_pack=cand_pack)
         eik_loss = L.eikonal_loss(g, mask[::d])
         total = total + weight_e * eik_loss
+    zero = torch.zeros((), device=coord.device)
+    sem_loss = color_loss = zero
+    if semantic_on and out.sem_log_prob is not None:
+        sem_label = batch["sem_label"]
+        labeled = sem_label >= 0 if freespace_label_on else sem_label > 0
+        d = sem_label_decimation
+        sem_loss = L.sem_nll_loss(out.sem_log_prob[::d], sem_label[::d],
+                                  (mask & labeled)[::d])
+        total = total + weight_s * sem_loss
+    if color_on and out.color is not None:
+        surface = torch.abs(sdf_label) < surface_sample_range_m
+        color_loss = L.color_l1_loss(out.color, batch["color_label"],
+                                     weight, mask & surface,
+                                     weighted=loss_weight_on)
+        total = total + weight_i * color_loss
     aux = {"qn": out.neighbors, "w": out.weights, "ts": batch["ts"],
-           "sdf_loss": sdf_loss, "eikonal_loss": eik_loss}
+           "sdf_loss": sdf_loss, "eikonal_loss": eik_loss,
+           "sem_loss": sem_loss, "color_loss": color_loss}
     return total, aux
 
 
@@ -261,6 +306,8 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
     pre_gather = n_iters <= 32
     use_subset = pre_gather and subset_hist >= bs
     cand_k = qp.nn_k + 2
+    semantic_on = loss_kwargs.get("semantic_on", False)
+    color_on = loss_kwargs.get("color_on", False)
 
     def probe_chunked(coords, lset):
         idx_parts, val_parts = [], []
@@ -274,13 +321,26 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         return torch.cat(idx_parts), torch.cat(val_parts)
 
     def pack_pool_rows(pool, idx):
-        return torch.cat([pool.coord[idx], pool.sdf_label[idx, None],
-                          pool.weight[idx, None],
-                          pool.ts[idx, None].to(torch.float32)], dim=1)
+        # the labels ride in the same rows: [coord | sdf | weight | ts |
+        # sem label | colour]
+        parts = [pool.coord[idx], pool.sdf_label[idx, None],
+                 pool.weight[idx, None], pool.ts[idx, None].to(torch.float32)]
+        if semantic_on and pool.sem_label is not None:
+            parts.append(pool.sem_label[idx, None].to(torch.float32))
+        if color_on and pool.color_label is not None:
+            parts.append(pool.color_label[idx])
+        return torch.cat(parts, dim=1)
 
     def unpack(packed):
-        return {"coord": packed[:, :3], "sdf_label": packed[:, 3],
-                "weight": packed[:, 4], "ts": packed[:, 5].to(torch.int32)}
+        batch = {"coord": packed[:, :3], "sdf_label": packed[:, 3],
+                 "weight": packed[:, 4], "ts": packed[:, 5].to(torch.int32)}
+        col = 6
+        if semantic_on and packed.shape[1] > col:
+            batch["sem_label"] = packed[:, col].to(torch.int32)
+            col += 1
+        if color_on and packed.shape[1] > col:
+            batch["color_label"] = packed[:, col:]
+        return batch
 
     def loop(params, state: npm.MapState, pool: PoolState, generator,
              use_new: torch.Tensor, lset, draws: Optional[dict] = None):
@@ -293,13 +353,22 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         gidx = lset.gidx
         lfeat = params["geo_features"][gidx].detach().clone()
         lfeat.requires_grad_(True)
-        mlp = {"w": [w.detach().clone().requires_grad_(train_decoder)
-                     for w in params["geo_mlp"]["w"]],
-               "b": [b.detach().clone().requires_grad_(train_decoder)
-                     for b in params["geo_mlp"]["b"]]}
         train_vars = [lfeat]
-        if train_decoder:
-            train_vars += mlp["w"] + mlp["b"]
+        lcfeat = None
+        if color_on and params.get("color_features") is not None:
+            lcfeat = params["color_features"][gidx].detach().clone()
+            lcfeat.requires_grad_(True)
+            train_vars.append(lcfeat)
+        mlps = {}
+        for name in ("geo_mlp", "color_mlp", "sem_mlp"):
+            if params.get(name) is None:
+                continue
+            mlps[name] = {
+                k: [t.detach().clone().requires_grad_(train_decoder)
+                    for t in params[name][k]] for k in ("w", "b")}
+            if train_decoder:
+                train_vars += mlps[name]["w"] + mlps[name]["b"]
+        mlp = mlps["geo_mlp"]
         # a fresh Adam per frame, matched to optax.adam(lr, eps)
         opt = torch.optim.Adam(train_vars, lr=lr, betas=(0.9, 0.999),
                                eps=adam_eps)
@@ -360,8 +429,10 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         for i in range(n_iters):
             batch, bmask, cnd, cnv = batch_of(i)
             opt.zero_grad(set_to_none=True)
-            loss, aux = mapping_loss(lfeat, mlp, batch, bmask, cnd, cnv, lset,
-                                     qp, **loss_kwargs)
+            loss, aux = mapping_loss(
+                lfeat, mlp, batch, bmask, cnd, cnv, lset, qp,
+                color_features=lcfeat, color_mlp=mlps.get("color_mlp"),
+                sem_mlp=mlps.get("sem_mlp"), **loss_kwargs)
             loss.backward()
             opt.step()
             losses.append(loss.detach())
@@ -428,14 +499,20 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         with torch.no_grad():
             state.geo_features[gidx] = lfeat.detach()
             state.geo_features[C] = 0.0
+            if lcfeat is not None:
+                state.color_features[gidx] = lcfeat.detach()
+                state.color_features[C] = 0.0
             state.certainty[gidx] = cert_l
             state.certainty[C] = 0.0
             state.ts_update[gidx] = ts_l
             state.ts_update[C] = 0
         new_params = dict(params)
         new_params["geo_features"] = state.geo_features
-        new_params["geo_mlp"] = {"w": [w.detach() for w in mlp["w"]],
-                                 "b": [b.detach() for b in mlp["b"]]}
+        if lcfeat is not None:
+            new_params["color_features"] = state.color_features
+        for name, m in mlps.items():
+            new_params[name] = {k: [t.detach() for t in m[k]]
+                                for k in ("w", "b")}
         return new_params, state, torch.stack(losses)
 
     return loop

@@ -15,8 +15,8 @@ ReLU) every batch is one launch of that kernel; the mesher picks the route
 from these static facts before its first query and keeps it in
 `decode_route`. Grid coordinates are made on the map's device per
 batch (the last batch is ragged, not padded) and each grid is pulled to the
-host once. Per-vertex colour/semantics (`vertex_attributes`) and sharding
-the batches over several devices are not ported yet.
+host once. `vertex_attributes` decodes per-vertex colour and semantic
+labels. Sharding the batches over several devices is not ported yet.
 """
 
 from __future__ import annotations
@@ -50,9 +50,12 @@ class MeshConfig:
 
 
 class Mesher:
-    def __init__(self, qp: mq.QueryParams, mc: MeshConfig):
+    def __init__(self, qp: mq.QueryParams, mc: MeshConfig,
+                 color_channel: int = 0, semantic_on: bool = False):
         self.qp = qp
         self.mc = mc
+        self.color_channel = color_channel
+        self.semantic_on = semantic_on
         # running totals over this mesher's calls (logs and benchmarks)
         self.n_batches = 0
         self.query_seconds = 0.0      # grid queries incl. the pull to the host
@@ -199,6 +202,41 @@ class Mesher:
                                           self.mc.min_cluster_vertices)
             self.marching_seconds += time.time() - t0
         return verts, faces
+
+    # ----------------------------------------------------- vertex attributes
+
+    def vertex_attributes(
+        self, state: npm.MapState, geo_features, geo_mlp,
+        verts: np.ndarray, color_features=None, color_mlp=None,
+        sem_mlp=None, color_channel: int = 3,
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """Per-vertex colour (with `color_mlp`) and semantic class (with
+        `sem_mlp`) decoded from the whole map in batches of infer_bs.
+        Returns (colours [V, 3] or None, labels [V] int32 or None); a
+        one-channel colour is repeated to grey."""
+        n = verts.shape[0]
+        dev = state.positions.device
+        colors = (np.zeros((n, 3), np.float32)
+                  if color_mlp is not None else None)
+        sems = np.zeros(n, np.int32) if sem_mlp is not None else None
+        bs = self.mc.infer_bs
+        with torch.no_grad():
+            for lo in range(0, n, bs):
+                hi = min(lo + bs, n)
+                pts = torch.as_tensor(
+                    np.asarray(verts[lo:hi], np.float32), device=dev)
+                out = mq.query_decode(
+                    geo_features, geo_mlp, pts, self.qp, state=state,
+                    color_features=color_features, color_mlp=color_mlp,
+                    sem_mlp=sem_mlp, color_channel=color_channel)
+                if colors is not None:
+                    col = out.color.cpu().numpy()
+                    colors[lo:hi] = col if col.shape[1] == 3 else np.repeat(
+                        col[:, :1], 3, 1)
+                if sems is not None:
+                    sems[lo:hi] = torch.argmax(
+                        out.sem_log_prob, -1).cpu().numpy()
+        return colors, sems
 
     # ------------------------------------------------------------ sdf slice
 

@@ -12,11 +12,17 @@
                       training run, preceded every `ba_freq_frame` frames
                       by sliding-window bundle adjustment (slam/ba.py)
 
+With `color_on` the points carry colour columns ([N, 3 + color_channel]):
+the map keeps colour features and a colour decoder, the tracker takes its
+uncached colour path against a local set built each frame, and the samples
+train the colour head. With `semantic_on`, `process_frame(sem_labels=...)`
+labels the points and the samples train the semantic head.
+
 The host keeps float64 pose chains and travel distance; the device works in
 float32 with a per-frame anchor (the last sensor position). The map grows
-its capacity when it passes 90 % of it. The brick-cache probe, colour,
-semantics, incidence labels, the consistency loss, data parallelism and
-localization mode are not ported yet and raise NotImplementedError.
+its capacity when it passes 90 % of it. The brick-cache probe, incidence
+labels, the consistency loss, data parallelism and localization mode are
+not ported yet and raise NotImplementedError.
 
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
@@ -77,17 +83,22 @@ def compute_init_guess(uniform_motion: bool, motion_model: str,
     return last_pose @ last_tran
 
 
-def _pad_points(pts: np.ndarray, cap: int):
-    """Pad [N, 3+] to [cap, 3]; returns (padded, n)."""
+def _pad_points(pts: np.ndarray, cap: int, attr_dim: int = 0):
+    """Pad [N, 3 + attr] to [cap, 3] and [cap, max(attr_dim, 1)] (the loop
+    closure passes x, y, z only: its attributes are 0); returns (padded,
+    attributes, n)."""
     n = min(pts.shape[0], cap)
     out = np.zeros((cap, 3), np.float32)
     out[:n] = pts[:n, :3]
-    return out, n
+    attr = np.zeros((cap, max(attr_dim, 1)), np.float32)
+    k = min(attr_dim, pts.shape[1] - 3)     # absent columns stay 0
+    if k > 0:
+        attr[:n, :k] = pts[:n, 3: 3 + k]
+    return out, attr, n
 
 
 def _check_supported(c: Config) -> None:
     off = {
-        "semantic_on": c.semantic_on, "color_on": c.color_on,
         "consistency_loss_on": c.consistency_loss_on,
         "incidence_label_on": c.incidence_label_on,
         "dp_on": c.dp_on,
@@ -96,7 +107,8 @@ def _check_supported(c: Config) -> None:
     if on:
         raise NotImplementedError(
             f"not ported yet: {', '.join(on)} (the port runs the join-mode "
-            "geometry loop, bundle adjustment and the dynamic filter)")
+            "loop with colour and semantics, bundle adjustment and the "
+            "dynamic filter)")
     if c.probe_mode not in ("auto", "join"):
         raise NotImplementedError(
             f"probe_mode={c.probe_mode!r}: the track+map loop implements "
@@ -128,18 +140,30 @@ class PinSLAMSystem:
 
         dev = self.device
         self.state = npm.init_map_state(c.map_capacity, c.buffer_size,
-                                        c.feature_dim, device=dev)
+                                        c.feature_dim, color_on=c.color_on,
+                                        device=dev)
         self.pool = mp.init_pool(c.pool_capacity,
                                  c.frame_point_cap * c.all_sample_n,
+                                 semantic_on=c.semantic_on,
+                                 color_channel=(c.color_channel
+                                                if c.color_on else 0),
                                  device=dev)
         init_gen = torch.Generator().manual_seed(c.seed)
+        in_dim = c.feature_dim + c.pos_input_dim
         self.params = {
-            "geo_features": self.state.geo_features,
             "geo_mlp": init_mlp_params(
-                init_gen, c.feature_dim + c.pos_input_dim,
-                c.geo_mlp_hidden_dim, c.geo_mlp_level, 1, c.mlp_bias_on,
-                device=dev),
+                init_gen, in_dim, c.geo_mlp_hidden_dim, c.geo_mlp_level, 1,
+                c.mlp_bias_on, device=dev),
         }
+        if c.color_on:
+            self.params["color_mlp"] = init_mlp_params(
+                init_gen, in_dim, c.color_mlp_hidden_dim, c.color_mlp_level,
+                c.color_channel, c.mlp_bias_on, device=dev)
+        if c.semantic_on:
+            self.params["sem_mlp"] = init_mlp_params(
+                init_gen, in_dim, c.sem_mlp_hidden_dim, c.sem_mlp_level,
+                c.sem_class_count, c.mlp_bias_on, device=dev)
+        self.sync_feature_params()
 
         # ------------------------------------------------ host state
         self.max_frames = c.max_frames
@@ -199,6 +223,14 @@ class PinSLAMSystem:
             numerical_grad_eps=c.voxel_size_m * c.num_grad_step_ratio,
             gradient_decimation=c.gradient_decimation,
             main_loss_type=c.main_loss_type,
+            surface_sample_range_m=c.surface_sample_range_m,
+            semantic_on=c.semantic_on,
+            weight_s=c.weight_s,
+            freespace_label_on=c.freespace_label_on,
+            sem_label_decimation=c.sem_label_decimation,
+            color_on=c.color_on,
+            weight_i=c.weight_i,
+            color_channel=c.color_channel,
         )
         tp = tk.TrackerParams(
             reg_iter_n=c.reg_iter_n,
@@ -219,7 +251,13 @@ class PinSLAMSystem:
             eigenvalue_check=c.eigenvalue_check,
             eigenvalue_ratio_thre=c.eigenvalue_ratio_thre,
             weighted_first=c.weighted_first,
+            color_mode=(2 if (c.color_on and c.photometric_loss_on)
+                        else 1 if (c.color_on and c.consist_wieght_on)
+                        else 0),
+            photometric_weight=c.photometric_loss_weight,
+            color_channel=max(c.color_channel, 1),
         )
+        self._use_color_track = tp.color_mode > 0
         self._track = tk.make_tracker(self.qp, tp)
         # a loop closure's re-registration accepts a smaller valid share
         self._track_loop = tk.make_tracker(
@@ -230,13 +268,20 @@ class PinSLAMSystem:
     def _tensor(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
+    def sync_feature_params(self):
+        """Point params["geo_features"] (and "color_features") at the map's
+        arrays; called wherever the map state is replaced."""
+        self.params["geo_features"] = self.state.geo_features
+        if self.state.color_features is not None:
+            self.params["color_features"] = self.state.color_features
+
     def _sync(self):
         if self._sync_timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def build_lset_track(self, travel, cur_ts, sensor_pos, reboot_ts):
         """Tracking local set (travel window + sensor radius) and its
-        compact features."""
+        compact geometry and colour (or None) features."""
         c = self.config
         s = self.state
         m = npm.local_map_mask(
@@ -246,7 +291,9 @@ class PinSLAMSystem:
         ls = kj.build_local_set(s.positions, m, c.voxel_size_m,
                                 c.local_set_cap, certainty=s.certainty,
                                 orientations=s.orientations)
-        return ls, self.params["geo_features"][ls.gidx]
+        cfeats = (None if s.color_features is None
+                  else s.color_features[ls.gidx])
+        return ls, self.params["geo_features"][ls.gidx], cfeats
 
     def build_lset_train(self, travel, cur_ts, reboot_ts):
         """Training local set (travel window), with certainty and update
@@ -277,29 +324,42 @@ class PinSLAMSystem:
         return T_world, td_new, valid & ~teleport
 
     def track_chain(self, src_pts, src_n, T_init, anchor, fid, travel,
-                    sensor_pos):
+                    sensor_pos, src_attr=None):
         """Local-set build + GN registration + pose selection (first
-        frames, or whenever no post-train set is cached)."""
-        lset, feats = self.build_lset_track(travel, fid - 1, sensor_pos,
-                                            self.reboot_ts)
+        frames, whenever no post-train set is cached, and every frame of
+        colour tracking, whose set carries the colour features)."""
+        lset, feats, cfeats = self.build_lset_track(
+            travel, fid - 1, sensor_pos, self.reboot_ts)
         return self.track_chain_cached(feats, src_pts, src_n, T_init,
-                                       travel, anchor, fid, lset)
+                                       travel, anchor, fid, lset,
+                                       cfeats=cfeats, src_attr=src_attr)
 
     def track_chain_cached(self, feats, src_pts, src_n, T_init, td, anchor,
-                           fid, lset):
-        """GN registration against a given local set + pose selection."""
+                           fid, lset, cfeats=None, src_attr=None):
+        """GN registration against a given local set + pose selection.
+        Colour tracking takes the set's colour features `cfeats` and the
+        source points' colours `src_attr`."""
+        c = self.config
         mask = torch.arange(src_pts.shape[0], device=self.device) < src_n
+        color_kw = {}
+        if self._use_color_track:
+            cols = src_attr[:, : c.color_channel]
+            color_kw = dict(src_intensity=tk.intensity(cols,
+                                                        c.color_channel),
+                            color_features=cfeats,
+                            color_mlp=self.params["color_mlp"])
         res = self._track(feats, self.params["geo_mlp"], src_pts, mask,
-                          T_init, anchor, lset)
+                          T_init, anchor, lset, **color_kw)
         T32, td_new, mapok = self.select_pose(
             res.valid, res.iterations, res.pose, T_init, anchor, td, fid)
         return res, T32, td_new, mapok
 
-    def preprocess(self, raw: torch.Tensor, n_valid: int,
-                   max_range_eff: float, train_vox: float,
+    def preprocess(self, raw: torch.Tensor, attr: torch.Tensor,
+                   n_valid: int, max_range_eff: float, train_vox: float,
                    source_vox: float):
         """Range/z crop, train and source voxel downsample, and compaction
-        to the static caps. Past a cap the cloud thins UNIFORMLY (a prefix
+        to the static caps; the attribute columns (colour, semantic label)
+        follow their points. Past a cap the cloud thins UNIFORMLY (a prefix
         cut would blind a fixed azimuth wedge); the pre-cap totals are
         returned so overflow is counted, never silent."""
         c = self.config
@@ -326,22 +386,35 @@ class PinSLAMSystem:
             dest = torch.where(ok, order, torch.full_like(order, cap))
             out = torch.zeros((cap + 1, 3), device=dev)
             out[dest] = raw     # dropped rows land in the discarded row cap
-            return out[:cap], ok.sum(), total
+            a_out = torch.zeros((cap + 1, attr.shape[1]), device=dev)
+            a_out[dest] = attr
+            return out[:cap], a_out[:cap], ok.sum(), total
 
-        train_pts, train_n, train_total = compact(train_keep,
-                                                  c.frame_point_cap)
+        train_pts, train_attr, train_n, train_total = compact(
+            train_keep, c.frame_point_cap)
         src_keep = voxel_down_sample_hash_mask(
             raw, train_keep, source_vox, 1 << 18) & train_keep
-        src_pts, src_n, src_total = compact(src_keep, c.source_point_cap)
-        return train_pts, train_n, src_pts, src_n, train_total, src_total
+        src_pts, src_attr, src_n, src_total = compact(src_keep,
+                                                      c.source_point_cap)
+        return (train_pts, train_attr, train_n, src_pts, src_attr, src_n,
+                train_total, src_total)
 
-    def _run_preprocess(self, points: np.ndarray, cap: Optional[int] = None):
+    def _run_preprocess(self, points: np.ndarray,
+                        sem_labels: Optional[np.ndarray] = None,
+                        cap: Optional[int] = None):
         """Pad to `cap` rows (default: the next power of two; a longer cloud
-        is cut to `cap`), upload, and run stage I."""
+        is cut to `cap`), upload, and run stage I. The attribute columns
+        are the colour (`color_channel` columns after x, y, z) and then the
+        semantic label."""
         c = self.config
         if cap is None:
             cap = 1 << int(np.ceil(np.log2(max(points.shape[0], 2))))
-        raw, n_raw = _pad_points(np.asarray(points, np.float32), cap)
+        attr_dim = (c.color_channel if c.color_on else 0) + int(c.semantic_on)
+        pts_in = np.asarray(points, np.float32)
+        if c.semantic_on and sem_labels is not None:
+            pts_in = np.hstack([pts_in[:, : 3 + attr_dim - 1],
+                                np.asarray(sem_labels, np.float32)[:, None]])
+        raw, attr, n_raw = _pad_points(pts_in, cap, attr_dim)
         max_range_eff = c.max_range
         if c.adaptive_range_on:
             pts = raw[:n_raw]
@@ -351,20 +424,27 @@ class PinSLAMSystem:
             max_range_eff = float(min(c.max_range, 2.0 * max_x_y_min_range))
         ratio = max_range_eff / c.max_range
         return self.preprocess(
-            self._tensor(raw), n_raw, max_range_eff,
+            self._tensor(raw), self._tensor(attr), n_raw, max_range_eff,
             c.vox_down_m * ratio, c.source_vox_down_m * ratio)
 
     def frame_update(self, train_pts, train_n, T, cur_ts, travel_dist,
                      force_all_new: bool, do_map, insert_cap: int,
-                     noise=None, static_mask=None):
+                     noise=None, static_mask=None, train_attr=None):
         """Sample along the rays, insert map points, append to the pool and
         mark the new samples. `do_map` is a device-side gate: when False
         every sample mask is cleared and the update changes no counts.
         `static_mask` (the dynamic filter's verdict) drops the rows it
-        clears. `noise` replaces the sampler's random draws (parity
-        tests)."""
+        clears. `train_attr` carries the points' colours and semantic
+        labels (see `_run_preprocess`). `noise` replaces the sampler's
+        random draws (parity tests)."""
         c = self.config
         dev = self.device
+        colors = sem = None
+        if c.color_on:
+            colors = train_attr[:, : c.color_channel]
+        if c.semantic_on:
+            sem = train_attr[:, c.color_channel if c.color_on else 0].to(
+                torch.int32)
         mask = (torch.arange(train_pts.shape[0], device=dev) < train_n) \
             & do_map
         if static_mask is not None:
@@ -378,7 +458,8 @@ class PinSLAMSystem:
             free_sample_end_dist_m=c.free_sample_end_dist_m,
             max_range=c.max_range, dist_weight_on=c.dist_weight_on,
             dist_weight_scale=c.dist_weight_scale,
-            behind_dropoff_on=c.behind_dropoff_on, noise=noise)
+            behind_dropoff_on=c.behind_dropoff_on, noise=noise,
+            sem_labels=sem, colors=colors)
         world = transform_points(smp.points, T)
         # ONE near-surface compaction feeds both the map-insert candidates
         # and the new-sample detection
@@ -399,7 +480,9 @@ class PinSLAMSystem:
             force_all_new=force_all_new, insert_cap=insert_cap)
         frame_start = mp.append_start(self.pool, world.shape[0])
         self.pool = mp.append_samples(self.pool, world, smp.sdf_label,
-                                      smp.weight, smp.mask, cur_ts)
+                                      smp.weight, smp.mask, cur_ts,
+                                      sem_label=smp.sem_label,
+                                      color_label=smp.color_label)
         self.pool = mp.detect_new_samples_compact(
             self.state, self.pool, kpts, kvalid, frame_start + ki,
             resolution=c.voxel_size_m,
@@ -416,7 +499,7 @@ class PinSLAMSystem:
             local_window_dist=self.local_window_dist)
         self.state = npm.rehash(state, cur_ts, resolution=c.voxel_size_m,
                                 use_mid_ts=c.use_mid_ts)
-        self.params["geo_features"] = self.state.geo_features
+        self.sync_feature_params()
         return n
 
     def filter_pool(self, origin):
@@ -516,7 +599,7 @@ class PinSLAMSystem:
                   f"(count {int(self.state.count)})")
         self.state = npm.grow_capacity(self.state, new_cap)
         c.map_capacity = new_cap
-        self.params["geo_features"] = self.state.geo_features
+        self.sync_feature_params()
         self._train_loops = {}
         self._cur_lset = None
         self._cur_track_feats = None
@@ -540,14 +623,15 @@ class PinSLAMSystem:
                       next_points: Optional[np.ndarray] = None,
                       next_sem_labels: Optional[np.ndarray] = None):
         """Run preprocess, odometry and mapping for one frame. `points` is
-        [N, 3] in the sensor frame. `next_points` (optional) is the NEXT
-        frame's raw cloud: its preprocess is dispatched before this frame's
-        host pull and reused when the caller passes the same cloud as
-        frame_id+1's `points`. `loop_hook(frame_id)` runs after the frame's
-        host pull (the loop closure + PGO slot, `timings` column 2). Returns
-        the pose estimate (4x4 float64)."""
-        if sem_labels is not None:
-            raise NotImplementedError("semantics are not ported yet")
+        [N, 3] in the sensor frame, [N, 3 + color_channel] with colour in
+        [0, 1] when `color_on`; `sem_labels` [N] int when `semantic_on`
+        (0: unlabeled). `next_points` (optional) is the NEXT frame's raw
+        cloud (and `next_sem_labels` its labels): its preprocess is
+        dispatched before this frame's host pull and reused when the caller
+        passes the same cloud as frame_id+1's `points`.
+        `loop_hook(frame_id)` runs after the frame's host pull (the loop
+        closure + PGO slot, `timings` column 2). Returns the pose estimate
+        (4x4 float64)."""
         c = self.config
         dev = self.device
         t0 = time.time()
@@ -584,9 +668,10 @@ class PinSLAMSystem:
         if self._prefetch is not None and self._prefetch[0] == frame_id:
             pre = self._prefetch[1]
         else:
-            pre = self._run_preprocess(points)
+            pre = self._run_preprocess(points, sem_labels)
         self._prefetch = None
-        train_pts, train_n, src_pts, src_n, train_total, src_total = pre
+        (train_pts, train_attr, train_n, src_pts, src_attr, src_n,
+         train_total, src_total) = pre
         self._sync()
         t1 = time.time()
 
@@ -598,7 +683,7 @@ class PinSLAMSystem:
             T_init[:3, 3] -= anchor
             T_init_d = self._tensor(T_init)
             anchor_d = self._tensor(anchor)
-            if self._cur_lset is not None:
+            if self._cur_lset is not None and not self._use_color_track:
                 # register against the previous frame's post-train local set
                 res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
                     self._cur_track_feats, src_pts, src_n, T_init_d, td_host,
@@ -606,7 +691,8 @@ class PinSLAMSystem:
             else:
                 res, T32_dev, td_dev, mapok_dev = self.track_chain(
                     src_pts, src_n, T_init_d, anchor_d, frame_id, td_host,
-                    self._tensor(self.last_pose_ref[:3, 3]))
+                    self._tensor(self.last_pose_ref[:3, 3]),
+                    src_attr=src_attr)
             self.last_tracking = res
             tracked = True
         elif frame_id > 0:
@@ -669,8 +755,8 @@ class PinSLAMSystem:
             train_pts, train_n, T32_dev, frame_id, td_dev,
             force_all_new=system_rebooted, do_map=do_map_dev,
             insert_cap=(1 << 16) if host_force else (1 << 14),
-            static_mask=static_mask)
-        self.params["geo_features"] = self.state.geo_features
+            static_mask=static_mask, train_attr=train_attr)
+        self.sync_feature_params()
         if pool_cadence:
             self.filter_pool(T32_dev[:3, 3])
         self._sync()
@@ -709,7 +795,9 @@ class PinSLAMSystem:
 
         # next frame's stage I rides ahead of the blocking pull
         if next_points is not None and next_points.shape[0] >= 10:
-            self._prefetch = (frame_id + 1, self._run_preprocess(next_points))
+            self._prefetch = (frame_id + 1,
+                              self._run_preprocess(next_points,
+                                                   next_sem_labels))
 
         # ---- the frame's batched host pull
         pull = []

@@ -1,6 +1,9 @@
 """Correspondence-free point-to-SDF registration (odometry). Port of
-`pin_slam_tpu/slam/tracker.py` on the join path (cached candidates,
-geometry only).
+`pin_slam_tpu/slam/tracker.py` on the join path: cached candidates for
+geometry-only tracking, and the uncached path of colour tracking, which
+probes the map every iteration and weighs each point by how well the map's
+colour agrees with the point's (`color_mode` 1) or adds a photometric term
+(`color_mode` 2).
 
 Gauss-Newton/LM in float32 in a sensor-anchored frame: transform -> SDF
 and its analytic gradient from the map -> Geman-McClure weights -> 6x6
@@ -48,6 +51,13 @@ class TrackerParams(NamedTuple):
     min_iter_n: int = 2
     # graduated non-convexity of the GM scales (1.0 = off)
     gm_anneal: float = 1.0
+    # colour: 0 = geometry only, 1 = colour-consistency weight, 2 =
+    # photometric term (robust GM weight photometric_gm on the intensity
+    # residual)
+    color_mode: int = 0
+    photometric_weight: float = 0.01
+    photometric_gm: float = 0.02
+    color_channel: int = 1
 
 
 class TrackResult(NamedTuple):
@@ -64,20 +74,27 @@ class TrackResult(NamedTuple):
     #                             valid, 4=final residual, 8=eigenvalues
 
 
+def intensity(color: torch.Tensor, channels: int) -> torch.Tensor:
+    """[N, C] colour -> [N] intensity (luma of RGB)."""
+    if channels == 3:
+        return (0.299 * color[:, 0] + 0.587 * color[:, 1]
+                + 0.114 * color[:, 2])
+    return color[:, 0]
+
+
 def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
     """Returns track(geo_features, geo_mlp, src, src_mask, init_T, anchor,
-    lset, loop_reg=False) -> TrackResult. `geo_features` is the compact
-    [L+1, F] array aligned with `lset`."""
+    lset, loop_reg=False, src_intensity=None, color_features=None,
+    color_mlp=None) -> TrackResult. `geo_features` (and `color_features`)
+    are the compact [L+1, F] arrays aligned with `lset`. With `color_mode`
+    > 0 and `color_mlp` given the registration takes the uncached path;
+    calls without the colour arguments (the loop closure's) register on
+    geometry alone."""
 
-    def quantities(geo_mlp, pts, src_mask, anchor, lset, cand, cvalid,
-                   gm_scale, rows):
-        p = pts.detach().requires_grad_(True)
-        with torch.enable_grad():
-            sdf, nn_count, std = mq.decode_sdf_candidates(
-                lset, geo_mlp, p + anchor, cand, cvalid, qp, rows,
-                with_std=not tp.weighted_first)
-            (grad,) = torch.autograd.grad(sdf.sum(), p)
-        sdf = sdf.detach()
+    def weigh(pts, sdf, grad, nn_count, std, src_mask, gm_scale,
+              color_w=None):
+        """Validity, Geman-McClure weights (times `color_w` where given,
+        before the validity mask) and the normal equations."""
         grad_norm = torch.linalg.norm(grad, dim=-1)
         valid = (src_mask & (nn_count >= tp.mask_min_nn_count)
                  & (grad_norm > tp.min_grad_norm)
@@ -91,7 +108,10 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         gm_d = tp.gm_dist * gm_scale
         w_grad = (gm_g / (gm_g + grad_anomaly ** 2)) ** 2
         w_res = (gm_d / (gm_d + residual ** 2)) ** 2
-        w = torch.where(valid, w_grad * w_res, torch.zeros_like(residual))
+        w = w_grad * w_res
+        if color_w is not None:
+            w = w * color_w
+        w = torch.where(valid, w, torch.zeros_like(residual))
         vcount = valid.sum()
         vc = torch.clamp(vcount.to(torch.float32), min=1.0)
         w = w / (2.0 * (w.sum() / vc) + 1e-12)
@@ -106,15 +126,63 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         mse = (w * residual ** 2).sum() / vc
         return H, g, res_cm, vcount, mse, w, valid
 
+    def quantities(geo_mlp, pts, src_mask, anchor, lset, cand, cvalid,
+                   gm_scale, rows):
+        p = pts.detach().requires_grad_(True)
+        with torch.enable_grad():
+            sdf, nn_count, std = mq.decode_sdf_candidates(
+                lset, geo_mlp, p + anchor, cand, cvalid, qp, rows,
+                with_std=not tp.weighted_first)
+            (grad,) = torch.autograd.grad(sdf.sum(), p)
+        return weigh(pts, sdf.detach(), grad, nn_count, std, src_mask,
+                     gm_scale)
+
+    def quantities_color(geo_features, geo_mlp, pts, src_mask, anchor,
+                         lset, gm_scale, src_intensity, color_features,
+                         color_mlp, qperm):
+        """One probe of the local set serves the SDF and the colour
+        decode, and the gradients of both w.r.t. the points (the JAX
+        package probes twice; the probe is deterministic)."""
+        p = pts.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = mq.query_decode(
+                geo_features, geo_mlp, p, qp, lset=lset, anchor=anchor,
+                with_std=not tp.weighted_first, qperm=qperm,
+                color_features=color_features, color_mlp=color_mlp,
+                color_channel=tp.color_channel)
+            inten = intensity(out.color, tp.color_channel)
+            (grad,) = torch.autograd.grad(out.sdf.sum(), p,
+                                          retain_graph=True)
+            (int_grad,) = torch.autograd.grad(inten.sum(), p)
+        int_pred = inten.detach()
+        color_w = (torch.exp(-torch.abs(int_pred - src_intensity))
+                   if tp.color_mode == 1 else None)
+        H, g, res_cm, vcount, mse, w, valid = weigh(
+            pts, out.sdf.detach(), grad, out.nn_count, out.sdf_std,
+            src_mask, gm_scale, color_w)
+        if tp.color_mode == 2:
+            # photometric term, robust to the colour residual and annealed
+            # with the geometric scales
+            res_c = int_pred - src_intensity
+            w_c = (tp.photometric_gm / (tp.photometric_gm + res_c ** 2)) ** 2
+            photo_fac = tp.photometric_weight / (gm_scale * gm_scale)
+            Jc = torch.cat([torch.linalg.cross(pts, int_grad, dim=-1),
+                            int_grad], dim=-1)
+            Jcw = Jc * (w * w_c)[:, None]
+            H = H + photo_fac * (Jcw.T @ Jc)
+            g = g - photo_fac * (Jcw.T @ res_c)
+        return H, g, res_cm, vcount, mse, w, valid
+
     def track(geo_features, geo_mlp, src: torch.Tensor,
               src_mask: torch.Tensor, init_T: torch.Tensor,
-              anchor: torch.Tensor, lset, loop_reg: bool = False
+              anchor: torch.Tensor, lset, loop_reg: bool = False,
+              src_intensity=None, color_features=None, color_mlp=None
               ) -> TrackResult:
         dev = src.device
         S = src.shape[0]
         src_count = torch.clamp(src_mask.sum(), min=1)
         min_ratio = 0.15 if loop_reg else tp.min_valid_ratio
-        track_pack = mq.pack_lset_rows(lset, geo_features)
+        use_color = tp.color_mode > 0 and color_mlp is not None
 
         # one Morton sort per track: the source moves rigidly by centimeters
         # between GN iterations and the k-NN recomputes tile bounding boxes
@@ -185,8 +253,38 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         def gm_scale(i):
             return max(1.0, tp.gm_anneal * 0.5 ** i)
 
+        def finish():
+            """The final residual and eigenvalue checks."""
+            res_ok = st["res_cm"] <= tp.max_valid_residual_cm
+            valid_flag = st["valid"] & res_ok
+            fail = st["fail"] | torch.where(res_ok, 0, 4)
+            H_raw = st["H"]
+            eig = torch.linalg.eigvalsh(H_raw[3:, 3:])
+            if tp.eigenvalue_check:
+                eig_ok = eig[0] >= st["vcount"].to(torch.float32) \
+                    * tp.eigenvalue_ratio_thre
+                valid_flag = valid_flag & eig_ok
+                fail = fail | torch.where(eig_ok, 0, 8)
+            cov = torch.linalg.inv(H_raw + 1e-9 * eye6) * st["mse"]
+            return TrackResult(
+                pose=st["T"], cov=cov, valid=valid_flag,
+                residual_cm=st["res_cm"], valid_count=st["vcount"],
+                iterations=torch.tensor(st["i"], device=dev), eigenvalues=eig,
+                weights=st["w"], valid_mask=st["vmask"], fail_code=fail)
+
+        if use_color:
+            # uncached: a probe and a decode of both heads every iteration
+            while st["i"] < tp.reg_iter_n and not bool(st["stop"]):
+                pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
+                gn_update(quantities_color(
+                    geo_features, geo_mlp, pts, src_mask, anchor, lset,
+                    gm_scale(st["i"]), src_intensity, color_features,
+                    color_mlp, qperm0))
+            return finish()
+
         # PROBED phase: a fresh candidate probe per GN step (the pose moves
         # most in the first iterations); once stopped, the state is final
+        track_pack = mq.pack_lset_rows(lset, geo_features)
         n_probed = 5 if loop_reg else 3
         cand = cvalid = rows = None
         for k_probe in range(n_probed):
@@ -204,23 +302,6 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
             pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
             gn_update(quantities(geo_mlp, pts, src_mask, anchor, lset, cand,
                                  cvalid, gm_scale(st["i"]), rows))
-
-        # final checks
-        res_ok = st["res_cm"] <= tp.max_valid_residual_cm
-        valid_flag = st["valid"] & res_ok
-        fail = st["fail"] | torch.where(res_ok, 0, 4)
-        H_raw = st["H"]
-        eig = torch.linalg.eigvalsh(H_raw[3:, 3:])
-        if tp.eigenvalue_check:
-            eig_ok = eig[0] >= st["vcount"].to(torch.float32) \
-                * tp.eigenvalue_ratio_thre
-            valid_flag = valid_flag & eig_ok
-            fail = fail | torch.where(eig_ok, 0, 8)
-        cov = torch.linalg.inv(H_raw + 1e-9 * eye6) * st["mse"]
-        return TrackResult(
-            pose=st["T"], cov=cov, valid=valid_flag,
-            residual_cm=st["res_cm"], valid_count=st["vcount"],
-            iterations=torch.tensor(st["i"], device=dev), eigenvalues=eig,
-            weights=st["w"], valid_mask=st["vmask"], fail_code=fail)
+        return finish()
 
     return track

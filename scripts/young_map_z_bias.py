@@ -43,7 +43,7 @@ def run(frames, poses, weighted_first, seed, n_frames, min_z):
     for i in range(n_frames - 1):
         system.process_frame(i, frames[i])
         lset, feats = system._cur_lset, system._cur_track_feats
-        _, _, src, src_n, _, _ = system._run_preprocess(frames[i + 1])
+        _, _, _, src, _, src_n, _, _ = system._run_preprocess(frames[i + 1])
         anchor = poses[i][:3, 3].copy()
         T_init = poses[i + 1].copy()
         T_init[:3, 3] -= anchor

@@ -115,17 +115,92 @@ def test_brick_probe_is_refused():
 
 
 def test_unported_yaml_features_are_refused():
+    """Every shipped YAML passes the port's check (colour and semantics are
+    ported); the flags of what is still not ported refuse a system."""
+    from pin_slam_tpu_torch.slam.system import (PinSLAMSystem,
+                                                _check_supported)
+
+    assert len(YAMLS) == 20
+    for path in YAMLS:
+        _check_supported(TConfig().load(path))
+    for flag in ("incidence_label_on", "consistency_loss_on", "dp_on"):
+        c = TConfig()
+        setattr(c, flag, True)
+        with pytest.raises(NotImplementedError, match=flag):
+            PinSLAMSystem(c.finalize(), device="cpu")
+
+
+COLOR_SEM_FIELDS = (
+    "semantic_on", "sem_class_count", "sem_label_decimation",
+    "freespace_label_on", "color_map_on", "color_on", "color_channel",
+    "weight_s", "weight_i", "sem_mlp_level", "sem_mlp_hidden_dim",
+    "color_mlp_level", "color_mlp_hidden_dim", "photometric_loss_on",
+    "photometric_loss_weight", "consist_wieght_on")
+
+
+@pytest.mark.parametrize("field", COLOR_SEM_FIELDS)
+def test_color_semantic_field_kept_and_loaded_alike(field):
+    """Each colour and semantic field is a field of the port's Config with
+    the JAX package's default, and over every YAML of the repo it loads to
+    the JAX package's value."""
+    assert field in {f.name for f in dataclasses.fields(TConfig)}
+    assert getattr(TConfig().finalize(), field) == \
+        getattr(JConfig().finalize(), field)
+    for path in YAMLS:
+        t, j = TConfig().load(path), JConfig().load(path)
+        assert getattr(t, field) == getattr(j, field), path
+
+
+def _cut(c):
+    """The static capacities (and the first frame's training) cut down, so
+    a test holds little memory and time."""
+    c.map_capacity, c.buffer_size = 1 << 12, 1 << 14
+    c.pool_capacity, c.frame_point_cap = 20_000, 1 << 10
+    c.source_point_cap, c.max_frames = 1 << 8, 64
+    c.local_set_cap, c.bs, c.bs_new_sample = 1 << 12, 256, 64
+    c.iters, c.init_iter_ratio = 1, 2
+    return c
+
+
+@pytest.mark.parametrize("name,check", [
+    ("lidar_slam/run_kitti_color.yaml", lambda c: c.color_on
+     and c.color_channel == 3 and not c.weighted_first
+     and c.consist_wieght_on and not c.photometric_loss_on),
+    ("rgbd_slam/run_replica.yaml", lambda c: c.color_on
+     and c.color_channel == 3 and not c.photometric_loss_on),
+    ("lidar_slam/run_demo_sem.yaml", lambda c: c.semantic_on
+     and c.sem_class_count == 20 and c.weighted_first),
+])
+def test_color_and_semantic_yamls_run_a_frame(name, check):
+    """The shipped colour and semantic files build a system and run a
+    frame through process_frame (with sem_labels for the semantic one), as
+    shipped apart from their static capacities and iterations (the colour
+    tracker and a semantic run are held to the JAX package in
+    tests/test_torch_color_track.py and test_torch_semantic.py)."""
+    import numpy as np
+
     from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
-    refused = 0
-    for path in YAMLS:
-        c = TConfig().load(path)
-        if (c.semantic_on or c.color_on or c.incidence_label_on
-                or c.consistency_loss_on or c.dp_on):
-            refused += 1
-            with pytest.raises(NotImplementedError):
-                PinSLAMSystem(c, device="cpu")
-    assert refused > 0
+    c = TConfig().load(os.path.join(ROOT, "config", name))
+    assert check(c)
+    system = PinSLAMSystem(_cut(c), device="cpu")
+    assert ("color_mlp" in system.params) == c.color_on
+    assert ("sem_mlp" in system.params) == c.semantic_on
+    rng = np.random.RandomState(0)
+    d = rng.randn(600, 3)
+    pts = d / np.linalg.norm(d, axis=1, keepdims=True) * 3.0 * c.min_range
+    if c.color_on:
+        pts = np.hstack([pts, rng.rand(600, 3)])
+    kw = {}
+    if c.semantic_on:
+        kw["sem_labels"] = rng.randint(0, 20, 600)
+    system.process_frame(0, pts.astype(np.float32), **kw)
+    assert int(system.state.count) > 0
+    n = int(system.pool.count)
+    if c.semantic_on:
+        assert int(system.pool.sem_label[:n].max()) > 0
+    if c.color_on:
+        assert float(system.pool.color_label[:n].max()) > 0
 
 
 @pytest.mark.parametrize("name,check", [

@@ -77,6 +77,16 @@ def test_knn_kernel_matches_plain_at_the_tracker_shape(cuda):
 
 
 @pytest.mark.cuda
+def test_knn_kernel_matches_plain_at_the_color_tracker_shape(cuda):
+    """The colour tracker's probe at every GN iteration: 8192 queries
+    (run_kitti_color.yaml's source cap), k = 6, a 65536-row local set."""
+    qp, lp = _dense_case(cuda, n_q=8192, L=65536, seed=6)
+    got, ref = _walk_both(qp, lp, 6, 1.44)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_knn_kernel_refuses_a_misaligned_local_set(cuda):
     """A local set one row (12 bytes) into its storage is not 16-byte
     aligned, which the kernel's 16-byte copies need: the wrapper raises
@@ -286,11 +296,12 @@ def test_closure_consequences_on_the_card(cuda):
     assert torch.equal(g1.table.cpu(), on_cpu.table)
 
 
-def _ba_filter_case(dev, seed=0, weighted_first=False):
+def _ba_filter_case(dev, seed=0, weighted_first=False, color=False):
     """A system on `dev` (weighted_first=False: the filter decodes through
     the fused kernel) holding a seeded map of a 12 m box room's walls with
     random features, and a replay pool of the walls' surface samples over
-    four frames."""
+    four frames (with `color`: a colour system, the samples coloured by
+    `procedural_color`)."""
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.models import neural_points as npm
     from pin_slam_tpu_torch.slam import mapper as mp
@@ -303,6 +314,7 @@ def _ba_filter_case(dev, seed=0, weighted_first=False):
     c.voxel_size_m = 0.4
     c.map_capacity, c.buffer_size = 1 << 16, 1 << 18
     c.frame_point_cap, c.source_point_cap, c.max_frames = 1 << 14, 1 << 10, 8
+    c.color_on, c.color_channel = color, 3 if color else 0
     c.finalize()
     c.pool_capacity = 1 << 17
     system = PinSLAMSystem(c, device=dev)
@@ -322,11 +334,19 @@ def _ba_filter_case(dev, seed=0, weighted_first=False):
     system.params["geo_features"] = system.state.geo_features
     # decoded SDFs spread around the filter's 0.2 m threshold
     system.params["geo_mlp"]["b"][-1] += 3.6
+    colors = None
+    if color:
+        from pin_slam_tpu_torch.dataset.synthetic import procedural_color
+        system.state.color_features[:cnt] = torch.as_tensor(
+            rng.randn(cnt, c.feature_dim).astype(np.float32), device=dev)
+        colors = torch.as_tensor(procedural_color(
+            walls.astype(np.float64)).astype(np.float32), device=dev)
     for f in range(4):
         system.pool = mp.append_samples(
             system.pool, pts[f::4], torch.zeros(len(pts[f::4]), device=dev),
             torch.ones(len(pts[f::4]), device=dev),
-            torch.ones(len(pts[f::4]), dtype=torch.bool, device=dev), f)
+            torch.ones(len(pts[f::4]), dtype=torch.bool, device=dev), f,
+            color_label=None if colors is None else colors[f::4])
         system.odom_poses[f] = np.eye(4)
     return system, pts
 
@@ -388,3 +408,27 @@ def test_dynamic_filter_fused_route_matches_plain_on_the_card(cuda):
     near = (b.sdf - c.dynamic_sdf_ratio_thre * c.voxel_size_m).abs() <= 1e-5
     assert not bool(((fused != plain) & ~near).any())
     assert 0 < int((~plain).sum()) < len(q)
+
+
+@pytest.mark.cuda
+def test_color_training_step_repeats_bit_for_bit_on_the_card(cuda):
+    """Two colour training runs from the same state with the same draws
+    give the same bits on the card: the geometry and colour features'
+    backward sums are order-free, and so are the certainty sums."""
+    outs = []
+    for _ in range(2):
+        system, _ = _ba_filter_case(cuda, color=True)
+        lset = system.build_lset_train(
+            system._tensor(system.travel_dist[: system.max_frames]), 3, 0)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        loop = system._get_train_loop(3, True)
+        params, state, losses = loop(system.params, system.state,
+                                     system.pool, gen,
+                                     torch.tensor(True, device=cuda), lset)
+        outs.append([state.geo_features, state.color_features,
+                     state.certainty, losses]
+                    + params["color_mlp"]["w"] + params["geo_mlp"]["w"])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(outs[0][3]).all())

@@ -44,6 +44,16 @@ def test_loop_slice_modules_listed(mod):
     assert f"pin_slam_tpu_torch.{mod}" in _modules()
 
 
+@pytest.mark.parametrize("mod", [
+    "utils.semantic_kitti_utils", "dataset.synthetic", "models.decoder",
+    "models.losses", "models.sampler"])
+def test_color_semantic_slice_modules_listed(mod):
+    """The modules of the colour and semantic slice, the port's own copy of
+    the SemanticKITTI utilities among them, are walked by the import check
+    below, so none of them loads jax or the JAX package."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
 def test_chip_smoke_imports_torch_package_only():
     import ast
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -99,7 +109,7 @@ def test_unported_options_raise():
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
-    for opt in ("semantic_on", "incidence_label_on"):
+    for opt in ("consistency_loss_on", "incidence_label_on"):
         c = Config()
         setattr(c, opt, True)
         with pytest.raises(NotImplementedError, match=opt):

@@ -247,3 +247,132 @@ def _train_loop(world, n_iters, use_new, weighted_first):
     df = np.abs(tst.geo_features.numpy() - np.asarray(jst.geo_features))
     assert np.median(df[df > 0]) < 1e-4 if (df > 0).any() else True
     assert df.max() <= 2 * 0.01 * n_iters
+
+
+def _single_scale_sum(dst, idx, src):
+    """`ops.scatter.index_add_exact` before the repair: every value rounded
+    to a multiple of 2**-39 of the largest |value|, the repeats summed as
+    int64."""
+    top = src.detach().abs().to(torch.float64).amax()
+    e = int(np.frexp(float(top))[1]) if float(top) > 0 else 0
+    q = 2.0 ** (e - 39)
+    fixed = torch.round(src.to(torch.float64) / q).to(torch.int64)
+    acc = torch.zeros(dst.shape, dtype=torch.int64).index_add_(0, idx, fixed)
+    return dst + (acc.to(torch.float64) * q).to(dst.dtype)
+
+
+def test_train_loop_keeps_small_feature_gradients(monkeypatch):
+    """The fixed-point sum of the feature gradient (`index_add_exact`)
+    scaled by the largest cotangent flushed a feature that only a cotangent
+    1e-13 of the largest reaches to 0, so the port's Adam left it where the
+    JAX package's moved it by ~lr. A query 2.5e-7 m from neural point A
+    also has point B 0.4 m away among its neighbours: B's IDW weight, and
+    so its cotangent, is ~4e-13 of A's, and no other query reaches B. With
+    the single scale (the sum before the repair, `_single_scale_sum`) B
+    stays put; with the repaired sum (the destinations the single scale
+    cannot resolve are summed again with their own scale) both packages
+    move it to the same value within 1e-6."""
+
+    rng = np.random.RandomState(4)
+    bs = 64
+    a_pt = np.array([0.05, 0.05, 0.05], np.float32)
+    b_pt = a_pt + np.array([0.4, 0.0, 0.0], np.float32)
+    g = np.stack(np.meshgrid(np.arange(-8, -3, 0.4),
+                             np.arange(-8, -3, 0.4)), -1).reshape(-1, 2)
+    plane = np.concatenate([g, np.zeros((len(g), 1))], 1).astype(np.float32)
+    pts = np.concatenate([plane, a_pt[None], b_pt[None]])
+    js = jnpm.init_map_state(1 << 10, 1 << 12, F, color_on=False,
+                             with_btable=False)
+    js, _ = jnpm.insert_points(js, jnp.asarray(pts),
+                               jnp.ones(len(pts), bool), 0, jnp.zeros(4),
+                               resolution=RES, local_window_dist=50.0,
+                               maintain_btable=False)
+    cnt = int(js.count)
+    pos = np.asarray(js.positions)[:cnt]
+    ga = int(np.argmin(np.linalg.norm(pos - a_pt, axis=1)))
+    gb = int(np.argmin(np.linalg.norm(pos - b_pt, axis=1)))
+    feats = np.zeros((js.capacity + 1, F), np.float32)
+    feats[:cnt] = rng.randn(cnt, F).astype(np.float32) * 0.1
+    js = js.replace(geo_features=jnp.asarray(feats))
+
+    P = 4000
+    key = jax.random.PRNGKey(11)
+    hist = np.asarray(jax.random.randint(jax.random.split(key, 3)[1],
+                                         (bs,), 0, P))
+    coord = np.zeros((P + 1, 3), np.float32)
+    coord[:P] = plane[rng.randint(0, len(plane), P)]
+    coord[:P, 2] = rng.randn(P).astype(np.float32) * 0.2
+    q_rows = hist[:8]                   # the query, in 8 batch rows
+    coord[q_rows] = a_pt + np.array([2.5e-7, 0, 0], np.float32)
+    sdf = np.zeros(P + 1, np.float32)
+    sdf[:P] = -coord[:P, 2]
+    sdf[q_rows] = 0.2                   # the query's label pulls hard
+    w = np.zeros(P + 1, np.float32)
+    w[:P] = 1.0
+    ts = np.zeros(P + 1, np.int32)
+    new_idx = np.zeros(9, np.int32)
+    jpool = jmp.init_pool(P, 8, False, 0).replace(
+        coord=jnp.asarray(coord), sdf_label=jnp.asarray(sdf),
+        weight=jnp.asarray(w), ts=jnp.asarray(ts), count=jnp.int32(P),
+        new_idx=jnp.asarray(new_idx), new_count=jnp.int32(0))
+    tpool = tmp.init_pool(P, 8).replace(
+        coord=_t(coord), sdf_label=_t(sdf), weight=_t(w), ts=_t(ts),
+        count=torch.tensor(P), new_idx=_t(new_idx).long(),
+        new_count=torch.tensor(0))
+    m = jnp.arange(js.capacity) < js.count
+    jls = jk.build_local_set(js.positions, m, RES, 1024,
+                             certainty=js.certainty, ts_update=js.ts_update)
+    tls = convert.lset_from_numpy(jls._asdict(), device="cpu")
+    mlp = j_init_mlp(jax.random.PRNGKey(1), F + 3, 64, 1, 1)
+    kw = dict(LOSS_KW, ekional_loss_on=False)
+    jqp = jmq.make_query_params(_cfg(JConfig))
+    tqp = tmq.make_query_params(_cfg(TConfig))
+    opt = optax.adam(0.01, eps=1e-15)
+    jloop = jmp.make_train_loop(jqp, opt, n_iters=1, bs=bs, bs_new=0,
+                                train_decoder=True,
+                                loss_kwargs=dict(J_LOSS_KW, **kw),
+                                subset_hist=2048)
+    params = {"geo_features": js.geo_features, "geo_mlp": mlp}
+    _, _, jst, _, _ = jloop(params, opt.init(params), js, jpool, key, None,
+                            jnp.bool_(False), jls)
+    moved_j = np.asarray(jst.geo_features)[gb] - feats[gb]
+    assert np.abs(moved_j).min() > 1e-3       # ~lr on every element
+    draws = {"hist": _t(hist).long(), "new_sel": torch.zeros((1, 0)).long()}
+
+    def port_step():
+        s_np = {f: np.asarray(getattr(js, f)) for f in convert.STATE_FIELDS}
+        tparams, tst = convert.from_jax({"geo_mlp": jax.tree.map(np.asarray, mlp)}, s_np,
+                                        device="cpu")
+        tloop = tmp.make_train_loop(tqp, lr=0.01, adam_eps=1e-15, n_iters=1,
+                                    bs=bs, bs_new=0, train_decoder=True,
+                                    loss_kwargs=kw, subset_hist=2048)
+        _, tst, _ = tloop(tparams, tst, tpool, None, torch.tensor(False),
+                          tls, draws=draws)
+        return tst.geo_features.numpy()
+
+    # the premise: B's cotangent is ~1e-13 of the batch's largest
+    lf = _t(np.asarray(js.geo_features)[np.asarray(jls.gidx)])
+    lf.requires_grad_(True)
+    lb = int(np.nonzero(np.asarray(jls.gidx) == gb)[0][0])
+    batch_idx = hist
+    qn = tnpm.query_neighbors_join(_t(coord[batch_idx]), tls,
+                                   nn_k=tqp.nn_k + 2,
+                                   max_dist2=tqp.join_max_dist2,
+                                   resolution=RES)
+    loss, _ = tmp.mapping_loss(
+        lf, convert.mlp_from_numpy(jax.tree.map(np.asarray, mlp), device="cpu"),
+        {"coord": _t(coord[batch_idx]), "sdf_label": _t(sdf[batch_idx]),
+         "weight": _t(w[batch_idx]), "ts": _t(ts[batch_idx])},
+        torch.ones(bs, dtype=torch.bool), qn.idx, qn.valid, tls, tqp, **kw)
+    loss.backward()
+    ratio = float(lf.grad[lb].abs().max() / lf.grad.abs().max())
+    assert 1e-14 < ratio < 1e-12, ratio
+
+    monkeypatch.setattr(tmq, "index_add_exact", _single_scale_sum)
+    before = port_step()
+    np.testing.assert_array_equal(before[gb], feats[gb])
+    monkeypatch.undo()
+    after = port_step()
+    np.testing.assert_allclose(after[gb], np.asarray(jst.geo_features)[gb],
+                               atol=1e-6, rtol=0)
+    assert ga != gb

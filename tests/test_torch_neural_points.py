@@ -355,8 +355,9 @@ def test_gather_feature_vectors_and_certainty(maps, rotate):
     jg, jc = jnpm.gather_feature_vectors(js, jq, jnp.asarray(q),
                                          rotate_by_orientation=rotate)
     assert jc is None
-    tg = tnpm.gather_feature_vectors(ts, tq, torch.as_tensor(q),
-                                     rotate_by_orientation=rotate)
+    tg, tc = tnpm.gather_feature_vectors(ts, tq, torch.as_tensor(q),
+                                         rotate_by_orientation=rotate)
+    assert tc is None
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6,
                                rtol=0)
     jw, tw = jnpm.idw_weights(jq), tnpm.idw_weights(tq)

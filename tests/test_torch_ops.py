@@ -258,12 +258,12 @@ def test_index_add_exact_is_order_free(cols):
 
 
 def test_index_add_exact_keeps_small_destinations():
-    """With `per_destination`, a destination that only small values reach
-    keeps their sum to float32 rounding, however large the values sent to
-    other destinations, and the sums are the same in any order. (Scaled by
-    the largest value of all, sums 1e-13 of it flush to zero; Adam turns
-    such a gradient into a full step, so the JAX package's float sums and
-    the port's must agree on it.)"""
+    """A destination that only small values reach keeps their sum to
+    float32 rounding, however large the values sent to other destinations,
+    and the sums are the same in any order: with `per_destination`, and in
+    the default form. (Scaled by the largest value of all alone, sums 1e-13
+    of it flush to zero; Adam turns such a gradient into a full step, so
+    the JAX package's float sums and the port's must agree on it.)"""
     from pin_slam_tpu_torch.ops.scatter import index_add_exact
 
     rng = np.random.RandomState(5)
@@ -281,6 +281,20 @@ def test_index_add_exact_keeps_small_destinations():
     again = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx[perm]),
                             torch.as_tensor(src[perm]), per_destination=True)
     assert torch.equal(got, again)
-    flushed = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx),
-                              torch.as_tensor(src))
-    assert (flushed.numpy()[2] == 0).all()
+    # the default keeps one scale (2**-39 of the largest value) wherever it
+    # leaves float32's 24 bits, bit for bit, and sums the other
+    # destinations (1e-17, 1e-30) again with their own scale, where that
+    # one scale would flush them to 0
+    got = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx),
+                          torch.as_tensor(src))
+    assert (got.numpy() != 0).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    q = 2.0 ** (int(np.frexp(np.abs(src).max())[1]) - 39)
+    single = np.zeros((4, 2))
+    np.add.at(single, idx, np.round(src.astype(np.float64) / q))
+    single = (single * q).astype(np.float32)
+    assert (single[1:3] == 0).all()
+    np.testing.assert_array_equal(got.numpy()[[0, 3]], single[[0, 3]])
+    again = index_add_exact(torch.zeros(4, 2), torch.as_tensor(idx[perm]),
+                            torch.as_tensor(src[perm]))
+    assert torch.equal(got, again)

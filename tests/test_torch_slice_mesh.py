@@ -23,6 +23,7 @@ One comparison is exact up to rounding: the JAX mesher on the PORT's map
 
 import numpy as np
 import pytest
+import torch
 from scipy.spatial import cKDTree
 
 import jax
@@ -87,6 +88,17 @@ def _mesh_config(cls, c):
                min_cluster_vertices=c.min_cluster_vertices,
                infer_bs=c.infer_bs_final, chunk_m=c.mc_res_m * 200)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread: when six test workers share the cores, the
+    systems' default thread pools oversubscribe them (this file's runs then
+    took 0.8-1.0 ks)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def runs():
