@@ -77,8 +77,8 @@
    x 128 rays over +-45 deg) on a hand-held walk (0.14 m a frame, the
    heading turning 1.34 deg a frame) round the island of make_sequence's
    room, whose far walls lie beyond the 15 m range. Cuts: synthetic scans
-   (no NCD data is in the repo); no sweep, so the config's `deskew` is not
-   exercised (the port has no deskew yet); 40 frames. It fails unless no
+   (no NCD data is in the repo); no sweep and process_frame driven directly,
+   so the config's `deskew` is not exercised (`[run]` deskews); 40 frames. It fails unless no
    frame is invalid, BA ran exactly on frames 19 and 39, each BA's last
    loss is below its first, the pose chain after each BA is BA's output,
    POOL_SAMPLE pool rows moved by the correction of their own timestamp
@@ -130,7 +130,8 @@
    the colour scores, the mesh's vertices and colour error, peak memory.
 10. Semantics (`[semantic]`): config/lidar_slam/run_demo_sem.yaml as
    shipped (20 classes, range 60 m, 20 GN iterations, map 2^21,
-   weighted_first true) over SEM_FRAMES frames on the same circle in
+   weighted_first true) over SEM_FRAMES frames (`[color]`'s ray casts: the
+   two rooms have the same primitives) on the same circle in
    `default_scene_semantic`'s room with its labels per point, through
    `process_frame(sem_labels=...)`. Cuts: min_z -7 m, synthetic labels in
    place of SemanticKITTI. Fails unless no frame is invalid, the drift
@@ -140,18 +141,54 @@
    accuracy and per-class IoU, and a semantic mesh with its vertex labels'
    accuracy.
 
+11. The entry point (`[run]`): config/lidar_slam/run_kitti.yaml as shipped
+   (voxel 0.4 m, weighted_first true, `pgo:` through LoopPgoManager's
+   hook, map 2^22, frame cap 65536, source cap 8192, kitti_correct 0.195
+   deg) run as a user runs it, `python -m pin_slam_tpu_torch.run <yaml> -o
+   <dir> -s -m --deskew` (in-process, through `run.main`), over RUN_FRAMES
+   frames of make_sequence's circle and room scanned by a spinning HDL-64
+   (`sweep=True`: each ray fires from the pose of its instant), read from
+   disk: PLY scans with a `time` field written through the inverse of the
+   KITTI correction, poses.txt in the camera frame of a calib.txt whose Tr
+   is not the identity, the ground truth at mid-scan (the frame a deskewed
+   scan is expressed in). Cuts: synthetic scans, min_z -7 m, the YAML's
+   paths pointed at that dataset. It fails unless every artifact of
+   tests/test_cli_e2e.py is written, no frame is invalid, the ATE of
+   `write_results` and every odometry and PGO pose are within 0.09 m x
+   frames, the k-NN kernel launched and the fused decode did not
+   (weighted_first true), the final mesh is not empty and the median
+   distance of its vertices to the scene is <= MAX_MESH_MEDIAN_M, deskew
+   brings the scans closer to the scene (on frames RUN_DESKEW_FRAMES, the
+   median |scene SDF| of the scan deskewed as the run did, placed with the
+   true pose, is below the raw scan's) and `vis_pin_map` meshes the saved
+   map (at the YAML's mc_res_m). Prints ms/frame, GN iterations, launches, ATE, mesh and deskew
+   figures.
+12. Localization (`[localize]`): the same YAML with `load_model: True` and
+   `model_path` at `[run]`'s pin_map.npz, through `run.run_pin_slam(...,
+   deskew=True)` over the same frames: the decoders and the map frozen, a
+   join set built once over the whole map, every frame tracked against it.
+   It fails unless every frame is valid, the map's rows, features and
+   decoder are bit-equal to the saved file after the run, the count is
+   unchanged, no training ran, the fused decode did not launch, and the ATE
+   is at most `[run]`'s + LOC_ATE_SLACK_M. Then the k-NN kernel at the
+   localization shape (the last frame's source cloud on its pose, k = 12
+   candidates, against the frozen set) must be bit-equal to its plain
+   version. Prints ms/frame, GN iterations, k-NN launches a frame, the
+   frozen set's size and the kernel's time, plain time and bound.
+
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
 CUDA device is present or any phase fails. `--only color,semantic` (any of
-slice, mesh, loop, ba, dynamic, color, semantic) runs the build, the kernel
-checks and the phases named, and prints neither line: a quicker check
-while working.
+slice, mesh, loop, ba, dynamic, color, semantic, run, localize; localize
+runs run first) runs the build, the kernel checks and the phases named, and
+prints neither line: a quicker check while working.
 """
 
 import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -191,17 +228,21 @@ BA_FRAMES = 40
 NCD_STEP_M = 0.14              # a walk at 1.4 m/s, scanned at 10 Hz
 NCD_RADIUS_M = 6.0             # 1.34 deg of turn a frame
 BA_POOL_ATOL_M = 1e-4          # float32 transforms of points <= 15 m out
-DYN_FRAMES = 40
+DYN_FRAMES = 30
 DYN_CHECK_FRAME = 20           # the frame whose filter runs both routes
 MOVER_RADIUS_M = 0.8
 MOVER_MARGIN_M = 0.1
 MAX_FALSE_DYNAMIC = 0.01       # tests/test_visibility.py's bound
-COLOR_FRAMES = 30
-SEM_FRAMES = 30
+COLOR_FRAMES = 20
+SEM_FRAMES = COLOR_FRAMES      # [semantic] labels [color]'s ray casts
 SURFACE_PROBES = 100_000       # eval/eval_gauntlet.py's colour/label probe
 COLOR_MAX_MAE = 0.08           # tests/test_rgbd_semantic.py's bounds
 COLOR_MIN_CORR = 0.9
 SEM_MIN_ACC = 0.8
+RUN_FRAMES = 30
+RUN_DESKEW_FRAMES = (10, 20, 29)
+KITTI_CORRECT_DEG = 0.195      # run_kitti.yaml's kitti_correct / correct_deg
+LOC_ATE_SLACK_M = 0.02
 
 
 def log(*a):
@@ -1450,11 +1491,17 @@ def make_sem_sequence(n_frames=SEM_FRAMES):
     return seq, label_fn
 
 
-def _sem_frame(i):
-    seq, label_fn = make_sem_sequence()
-    pts = seq.frame(i)
-    w = pts @ seq.poses[i][:3, :3].T + seq.poses[i][:3, 3]
-    return pts, label_fn(w.astype(np.float64))
+def sem_frames_from(col_frames, poses, label_fn):
+    """`[semantic]`'s frames from `[color]`'s: the two rooms have the same
+    primitives, so the ray casts are the same; each point is labelled by
+    the primitive it hit. Returns (frames [N, 3], labels [N])."""
+    frames, labels = [], []
+    for f, T in zip(col_frames, poses):
+        pts = np.ascontiguousarray(f[:, :3])
+        w = pts @ T[:3, :3].T + T[:3, 3]
+        frames.append(pts)
+        labels.append(label_fn(w.astype(np.float64)))
+    return frames, labels
 
 
 def gt_surface_points(frames, poses, n=SURFACE_PROBES):
@@ -1702,11 +1749,342 @@ def phase_semantic(frames, labels, poses, label_fn, dev):
         mesh_acc=vacc, coverage=float(v.mean()))
 
 
-def make_frames(fn, args):
-    """fn over args in spawned worker processes (frame i of a sequence)."""
+def make_run_sequence(n_frames=RUN_FRAMES):
+    """make_sequence's HDL-64 frames on its circle in its room, scanned by a
+    spinning sensor: each ray fires from the pose of its azimuth's instant
+    between this frame's pose and the next (`sweep=True`). The sequence
+    holds one pose more than the frames run, so the last frame moves
+    during its sweep too."""
+    seq = make_sequence(n_frames + 1)
+    seq.sweep = True
+    return seq
+
+
+def _run_frame(i):
+    return make_run_sequence().frame_with_ts(i)
+
+
+def mid_scan_poses(seq):
+    """The poses at each scan's middle instant: the frame the deskewed scan
+    is expressed in (deskew's ts_mid_pose 0.5), so the ground truth."""
+    return np.stack([seq._pose_at(i, 0.5) for i in range(len(seq))])
+
+
+def write_ply_with_time(path, pts, ts):
+    """Binary PLY with x, y, z (float) and a per-point `time` (double)."""
+    arr = np.empty(len(pts), np.dtype([("xyz", "<f4", (3,)),
+                                       ("time", "<f8")]))
+    arr["xyz"], arr["time"] = pts, ts
+    hdr = ("ply\nformat binary_little_endian 1.0\n"
+           f"element vertex {len(pts)}\nproperty float x\nproperty float y\n"
+           "property float z\nproperty double time\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(hdr.encode("ascii"))
+        f.write(arr.tobytes())
+
+
+def write_run_dataset(root, frames, gt):
+    """The sequence as a KITTI-style dataset on disk: PLY scans with their
+    time field, written through the inverse of KITTI's vertical-angle
+    correction (the reader's `kitti_correct` undoes it), poses.txt in the
+    camera frame of a calib.txt whose Tr is not the identity (the reader's
+    `apply_kitti_format_calib` moves them back into the LiDAR frame)."""
+    from pin_slam_tpu_torch.dataset.io import write_kitti_format_poses
+    from pin_slam_tpu_torch.dataset.slam_dataset import intrinsic_correct
+
+    pc = os.path.join(root, "velodyne")
+    os.makedirs(pc, exist_ok=True)
+    for i, (pts, ts) in enumerate(frames):
+        raw = intrinsic_correct(pts.astype(np.float64), -KITTI_CORRECT_DEG)
+        write_ply_with_time(os.path.join(pc, f"{i:06d}.ply"), raw, ts)
+    Tr = np.eye(4)        # KITTI's LiDAR -> camera axes, with an offset
+    Tr[:3, :3] = [[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]]
+    Tr[:3, 3] = [-0.004, -0.076, -0.272]
+    write_kitti_format_poses(os.path.join(root, "poses.txt"), np.stack(
+        [Tr @ T @ np.linalg.inv(Tr) for T in gt]))
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join(f"{v:.12e}" for v in Tr[:3].ravel())
+                + "\n")
+    return pc
+
+
+def run_yaml(root, name, **setting):
+    """config/lidar_slam/run_kitti.yaml as shipped, its paths pointed at
+    the dataset under `root`, min_z -7 m (the floor kept, as `[loop]`),
+    and `setting` entries added."""
+    import yaml
+    with open(os.path.join(ROOT, "config", "lidar_slam",
+                           "run_kitti.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["setting"].update(pc_path=os.path.join(root, "velodyne"),
+                          pose_path=os.path.join(root, "poses.txt"),
+                          calib_path=os.path.join(root, "calib.txt"),
+                          output_root=os.path.join(root, name), **setting)
+    cfg["process"]["min_z_m"] = -7.0
+    path = os.path.join(root, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+class SystemSpy:
+    """Records, while active, what the entry point's PinSLAMSystem did:
+    the system itself, each frame's tracker validity, GN iterations and
+    host seconds, and the training runs. Wraps the class's process_frame
+    and train and restores them on exit."""
+
+    def __enter__(self):
+        from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+        self.cls = PinSLAMSystem
+        self.orig = (PinSLAMSystem.process_frame, PinSLAMSystem.train)
+        self.system, self.valid, self.iters, self.secs = None, [], [], []
+        self.trains = 0
+        spy = self
+
+        def process_frame(sysm, frame_id, *a, **k):
+            spy.system = sysm
+            t0 = time.time()
+            out = spy.orig[0](sysm, frame_id, *a, **k)
+            tr = sysm.last_tracking
+            spy.valid.append(frame_id == 0 or (tr is not None
+                                               and bool(tr.valid)))
+            spy.secs.append(time.time() - t0)
+            spy.iters.append(sysm.last_track_iters)
+            return out
+
+        def train(sysm, *a, **k):
+            spy.trains += 1
+            return spy.orig[1](sysm, *a, **k)
+
+        PinSLAMSystem.process_frame = process_frame
+        PinSLAMSystem.train = train
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.process_frame, self.cls.train = self.orig
+        return False
+
+
+def read_ply_vertices(path):
+    from pin_slam_tpu_torch.dataset.io import read_ply
+    d = read_ply(path)
+    return np.stack([d["x"], d["y"], d["z"]], -1)
+
+
+def pose_errors(path, gt):
+    from pin_slam_tpu_torch.dataset.io import read_kitti_format_poses
+    est = np.stack(read_kitti_format_poses(path))
+    return est, np.linalg.norm(est[:, :3, 3] - gt[: len(est), :3, 3], axis=1)
+
+
+def phase_run(frames, seq, root):
+    """run_kitti.yaml through the entry point, as a user runs it:
+    `python -m pin_slam_tpu_torch.run <yaml> -o <dir> -s -m --deskew`,
+    in-process. Returns both kernels' launches and the figures."""
+    import torch
+    from pin_slam_tpu_torch import run as trun
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.dataset.slam_dataset import SLAMDataset
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.vis_map import vis_pin_map
+
+    n = len(frames)
+    gt = mid_scan_poses(seq)[:n]
+    write_run_dataset(root, frames, gt)
+    cfg_path = run_yaml(root, "run")
+    out_dir = os.path.join(root, "run_out")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    with get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        frames = pool.map(fn, args)
+    with SystemSpy() as spy:
+        kj.LAUNCHES = 0
+        fd.LAUNCHES = 0
+        metrics = trun.main([cfg_path, "-o", out_dir, "-s", "-m",
+                             "--deskew"])
+        knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    run_dir = os.path.join(out_dir, sorted(os.listdir(out_dir))[0])
+    missing = [f for f in ("odom_poses_kitti.txt", "odom_poses_tum.txt",
+                           "pose_eval.csv", "time_table.npy",
+                           "model/pin_map.npz", "map/neural_points.ply",
+                           "meta/config_all.yaml")
+               if not os.path.exists(os.path.join(run_dir, f))]
+    meshes = sorted(os.listdir(os.path.join(run_dir, "mesh")))
+    if missing or not meshes:
+        raise AssertionError(f"[run] missing artifacts: {missing}, meshes "
+                             f"{meshes}")
+    ate = metrics["Absoulte Trajectory Error [m]"]
+    odom, err = pose_errors(os.path.join(run_dir, "odom_poses_kitti.txt"),
+                            gt)
+    _, slam_err = pose_errors(os.path.join(run_dir, "slam_poses_kitti.txt"),
+                              gt)
+    steady = np.asarray(spy.secs[WARMUP:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[run] run_kitti.yaml through the entry point: {n} frames in "
+        f"{wall:.1f} s (the run, the final mesh and the saves); "
+        f"process_frame median {np.median(steady):.1f} ms over the steady "
+        f"frames ({1e3 / np.median(steady):.3f} fps); GN iterations a "
+        f"frame mean {np.mean(spy.iters[1:]):.1f}; ATE (write_results, "
+        f"aligned) {ate * 100:.2f} cm, max pose error (no alignment) "
+        f"{err.max() * 100:.2f} cm (PGO chain {slam_err.max() * 100:.2f} "
+        f"cm); knn_join launches {knn_launches} ({knn_launches / n:.1f} a "
+        f"frame), fused_decode {fd_launches}; "
+        f"{int(spy.system.state.count)} map points; trainings {spy.trains};"
+        f" peak device memory {peak:.2f} GiB")
+    if not all(spy.valid):
+        raise AssertionError("[run] the tracker lost track in frames "
+                             f"{[i for i, v in enumerate(spy.valid) if not v]}")
+    check_drift(err, 0.09 * n)
+    check_drift(slam_err, 0.09 * n)
+    if not ate <= 0.09 * n:
+        raise AssertionError(f"[run] ATE {ate} m past {0.09 * n} m")
+    if knn_launches <= 0:
+        raise AssertionError("[run] the run never launched the knn_join "
+                             "kernel")
+    if fd_launches != 0:
+        raise AssertionError(f"[run] weighted_first=True, yet the fused "
+                             f"decode launched {fd_launches} times")
+
+    # the final mesh, against the true scene
+    verts = read_ply_vertices(os.path.join(run_dir, "mesh", meshes[0]))
+    med = float(np.median(np.abs(seq.scene_sdf(verts.astype(np.float64)))))
+    log(f"[run] final mesh {meshes[0]}: {len(verts)} vertices, median "
+        f"distance of its vertices to the scene {med:.4f} m (bound "
+        f"{MAX_MESH_MEDIAN_M} m)")
+    if len(verts) == 0 or med > MAX_MESH_MEDIAN_M:
+        raise AssertionError(f"[run] mesh of {len(verts)} vertices, median "
+                             f"{med} m off the scene")
+
+    # deskew, as the run did it (with the relative motion of the two frames
+    # before, read back from the written odometry): the deskewed scan
+    # placed with the true mid-scan pose lies closer to the scene
+    cfg = Config().load(cfg_path)
+    cfg.deskew = True
+    data = SLAMDataset(cfg)
+    ratios = []
+    for i in RUN_DESKEW_FRAMES:
+        pts, ts = data.read_frame(i)
+        tran = np.linalg.inv(odom[i - 2]) @ odom[i - 1]
+        desk = data.deskew(pts, ts, tran)
+        T = gt[i]
+        d_raw = np.median(np.abs(seq.scene_sdf(pts @ T[:3, :3].T + T[:3, 3])))
+        d_desk = np.median(np.abs(seq.scene_sdf(
+            desk @ T[:3, :3].T + T[:3, 3])))
+        ratios.append((i, float(d_raw), float(d_desk)))
+    log("[run] deskew: median |scene SDF| on the true mid-scan pose, raw -> "
+        "deskewed: " + ", ".join(f"frame {i} {a * 100:.2f} -> {b * 100:.2f} "
+                                 f"cm" for i, a, b in ratios))
+    if not all(b < a for _, a, b in ratios):
+        raise AssertionError(f"[run] deskew does not bring the scans closer "
+                             f"to the scene: {ratios}")
+
+    t0 = time.time()
+    verts, faces = vis_pin_map(run_dir, mc_res_m=cfg.mc_res_m)
+    torch.cuda.synchronize()
+    log(f"[run] vis_pin_map at {cfg.mc_res_m} m: {verts.shape[0]} "
+        f"vertices, {faces.shape[0]} faces in {time.time() - t0:.2f} s")
+    if verts.shape[0] == 0:
+        raise AssertionError("[run] vis_pin_map gave an empty mesh")
+    return knn_launches, fd_launches, run_dir, dict(
+        ms=float(np.median(steady)), ate_m=ate, max_err_m=float(err.max()),
+        gn_iters=float(np.mean(spy.iters[1:])), wall_s=wall)
+
+
+def phase_localize(frames, seq, root, run_dir, run_ate):
+    """The same YAML with load_model through run_pin_slam over the same
+    frames: localization against `[run]`'s saved map. Then the k-NN kernel
+    at the localization shape, against its plain version."""
+    import torch
+    from pin_slam_tpu_torch import run as trun
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.tracker import CAND_K
+
+    n = len(frames)
+    model = os.path.join(run_dir, "model", "pin_map.npz")
+    cfg_path = run_yaml(root, "localize", load_model=True, model_path=model)
+    with np.load(model) as z:
+        saved = {k: z[k] for k in z.files}
+    cnt = int(saved["positions"].shape[0])
+    torch.cuda.reset_peak_memory_stats()
+    with SystemSpy() as spy:
+        kj.LAUNCHES = 0
+        fd.LAUNCHES = 0
+        metrics = trun.run_pin_slam(cfg_path, deskew=True)
+        knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    torch.cuda.synchronize()
+    system = spy.system
+    ate = metrics["Absoulte Trajectory Error [m]"]
+    steady = np.asarray(spy.secs[WARMUP:]) * 1e3
+    lset = system._loc_lset
+    log(f"[localize] {n} frames against the saved map ({cnt} points; the "
+        f"frozen join set {lset.cap} rows, {int(lset.count)} live, built "
+        f"once): process_frame median {np.median(steady):.1f} ms "
+        f"({1e3 / np.median(steady):.3f} fps); GN iterations a frame mean "
+        f"{np.mean(spy.iters[1:]):.1f}; knn_join launches {knn_launches} "
+        f"({knn_launches / max(n - 1, 1):.2f} a tracked frame), "
+        f"fused_decode {fd_launches}; trainings {spy.trains}; ATE "
+        f"{ate * 100:.2f} cm (mapping run {run_ate * 100:.2f} cm); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        "GiB")
+    if not (system.localization_mode and all(spy.valid)):
+        raise AssertionError("[localize] frames lost: "
+                             f"{[i for i, v in enumerate(spy.valid) if not v]}")
+    s = system.state
+    if int(s.count) != cnt:
+        raise AssertionError(f"[localize] the map's count moved: {cnt} -> "
+                             f"{int(s.count)}")
+    for f in ("positions", "orientations", "geo_features", "ts_create",
+              "ts_update", "certainty"):
+        if not np.array_equal(getattr(s, f)[:cnt].cpu().numpy(),
+                              saved[f][:cnt]):
+            raise AssertionError(f"[localize] map {f} changed")
+    for kind in ("w", "b"):
+        for i, w in enumerate(system.params["geo_mlp"][kind]):
+            if not np.array_equal(w.cpu().numpy(),
+                                  saved[f"mlp/geo_mlp.{kind}.{i}"]):
+                raise AssertionError("[localize] the decoder changed")
+    if spy.trains or knn_launches <= 0 or fd_launches:
+        raise AssertionError(f"[localize] trainings {spy.trains}, knn "
+                             f"launches {knn_launches}, fused decode "
+                             f"{fd_launches}")
+    if ate > run_ate + LOC_ATE_SLACK_M:
+        raise AssertionError(f"[localize] ATE {ate} m past the mapping "
+                             f"run's {run_ate} m + {LOC_ATE_SLACK_M}")
+
+    # the k-NN kernel at the localization shape: the last frame's source
+    # cloud on its pose against the frozen whole-map set
+    from pin_slam_tpu_torch.dataset.slam_dataset import SLAMDataset
+    data = SLAMDataset(system.config)
+    pts, ts = data.read_frame(n - 1)
+    pts = data.deskew(pts, ts, system.last_odom_tran)
+    pre = system._run_preprocess(pts)
+    src, src_n = pre[3], int(pre[5])
+    T = torch.as_tensor(system.cur_pose_ref, dtype=torch.float32,
+                        device=system.device)
+    rows = torch.arange(src.shape[0], device=src.device) < src_n
+    q = torch.where(rows[:, None], src @ T[:3, :3].T + T[:3, 3],
+                    torch.full_like(src, kj.PAD))
+    q = torch.cat([q, torch.full(((-len(q)) % kj.TQ, 3), kj.PAD,
+                                 device=src.device)])
+    lp = lset.pts[:-1].contiguous()
+    qs, tab, bbd, perm, md2f = kj.prepare(q, lp, system.qp.join_max_dist2,
+                                          system.qp.resolution)
+    shape = measure_knn("localize", src.shape[0],
+                        (qs, lp, tab, bbd, perm, CAND_K, md2f))
+    shape["set_rows"] = lset.cap
+    return knn_launches, fd_launches, shape, dict(
+        ms=float(np.median(steady)), ate_m=ate,
+        gn_iters=float(np.mean(spy.iters[1:])),
+        knn_per_frame=knn_launches / max(n - 1, 1))
+
+
+def make_frames(pool, fn, args):
+    """fn over args in the pool's spawned worker processes (frame i of a
+    sequence)."""
+    t0 = time.time()
+    frames = pool.map(fn, args)
     first = frames[0][0] if isinstance(frames[0], tuple) else frames[0]
     log(f"[data] {len(frames)} frames of {fn.__name__}, {first.shape[0]} "
         f"points in frame 0, {time.time() - t0:.1f} s")
@@ -1717,8 +2095,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (slice, mesh, loop, ba, "
-                    "dynamic, color, semantic) after the kernel checks; "
-                    "prints no result")
+                    "dynamic, color, semantic, run, localize) after the "
+                    "kernel checks; prints no result")
     only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
     if not torch.cuda.is_available():
@@ -1747,11 +2125,25 @@ def main():
             f"{spills}, shared memory "
             + (f"{'/'.join(smem)} B" if smem else "sized at launch"))
 
+    # one pool of spawned workers ray-casts every phase's frames
+    pool = get_context("spawn").Pool(min(8, os.cpu_count() or 1))
+    try:
+        return run_phases(only, dev, pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(only, dev, pool):
+    """The kernel checks and the phases (all, or those `only` names), then
+    the result lines when all ran."""
+    import torch
+
     def want(phase):
         return not only or phase in only
 
     seq = make_sequence(N_FRAMES)
-    frames = make_frames(_frame, range(N_FRAMES))
+    frames = make_frames(pool, _frame, range(N_FRAMES))
     kres = phase_kernels(frames, seq.poses, dev)
     fres = phase_fused_decode(dev)
     out = {}
@@ -1763,39 +2155,58 @@ def main():
     torch.cuda.empty_cache()
     if want("loop"):
         lseq = make_loop_sequence()
-        loop_frames = make_frames(_loop_frame,
+        loop_frames = make_frames(pool, _loop_frame,
                                   [(i, {}) for i in range(LOOP_FRAMES)])
         out["loop"], _ = phase_loop(loop_frames, lseq.poses, dev)
         del loop_frames
         torch.cuda.empty_cache()
     if want("ba"):
-        ba_frames = make_frames(_ncd_frame, range(BA_FRAMES))
+        ba_frames = make_frames(pool, _ncd_frame, range(BA_FRAMES))
         out["ba"], _ = phase_ba(ba_frames, make_ncd_sequence().poses, dev)
         del ba_frames
         torch.cuda.empty_cache()
     if want("dynamic"):
         mseq, centers = make_mos_sequence()
-        dyn_frames = make_frames(_mos_frame, range(DYN_FRAMES))
+        dyn_frames = make_frames(pool, _mos_frame, range(DYN_FRAMES))
         knn_dyn, fd_dyn, _ = phase_dynamic(dyn_frames, mseq.poses, centers,
                                            dev)
         out["dynamic"] = (knn_dyn, fd_dyn)
         del dyn_frames
         torch.cuda.empty_cache()
+    if want("color") or want("semantic"):
+        col_frames = make_frames(pool, _color_frame, range(COLOR_FRAMES))
     if want("color"):
-        col_frames = make_frames(_color_frame, range(COLOR_FRAMES))
         knn_col, fd_col, col_shape, _ = phase_color(
             col_frames, make_color_sequence().poses, dev)
         out["color"] = (knn_col, fd_col)
         kres.append(col_shape)
-        del col_frames
         torch.cuda.empty_cache()
     if want("semantic"):
         sseq, label_fn = make_sem_sequence()
-        sem = make_frames(_sem_frame, range(SEM_FRAMES))
-        knn_sem, fd_sem, _ = phase_semantic(
-            [f for f, _ in sem], [lab for _, lab in sem], sseq.poses,
-            label_fn, dev)
+        sem_frames, labels = sem_frames_from(col_frames, sseq.poses,
+                                             label_fn)
+        knn_sem, fd_sem, _ = phase_semantic(sem_frames, labels, sseq.poses,
+                                            label_fn, dev)
         out["semantic"] = (knn_sem, fd_sem)
+        del sem_frames
+        torch.cuda.empty_cache()
+    if want("color") or want("semantic"):
+        del col_frames
+    if want("run") or want("localize"):
+        rseq = make_run_sequence()
+        rframes = make_frames(pool, _run_frame, range(RUN_FRAMES))
+        root = os.path.join(ROOT, "build", "chip_smoke_run")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        knn_run, fd_run, run_dir, run_res = phase_run(rframes, rseq, root)
+        out["run"] = (knn_run, fd_run)
+        torch.cuda.empty_cache()
+        if want("localize"):
+            knn_loc, fd_loc, loc_shape, _ = phase_localize(
+                rframes, rseq, root, run_dir, run_res["ate_m"])
+            out["localize"] = (knn_loc, fd_loc)
+            kres.append(loc_shape)
+        shutil.rmtree(root, ignore_errors=True)
     if only:
         log(f"[only] {', '.join(only)}: done; a partial run prints no "
             "result")
@@ -1820,6 +2231,8 @@ def main():
         "launches_dynamic_path": out["dynamic"][0],
         "launches_color_path": out["color"][0],
         "launches_semantic_path": out["semantic"][0],
+        "launches_run_path": out["run"][0],
+        "launches_localize_path": out["localize"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -1834,6 +2247,8 @@ def main():
         "launches_dynamic_path": out["dynamic"][1],
         "launches_color_path": out["color"][1],
         "launches_semantic_path": out["semantic"][1],
+        "launches_run_path": out["run"][1],
+        "launches_localize_path": out["localize"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

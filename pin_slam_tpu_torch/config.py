@@ -3,13 +3,14 @@
 The port's own copy of the part of `pin_slam_tpu/config.py` that its
 join-mode loop with its colour and semantic mapping, its mesher and its
 loop closure and pose-graph optimisation, its sliding-window bundle
-adjustment and its map-based dynamic filter read: the same field names,
-defaults and YAML schema, so every config file of the repo loads into both
-packages and gives the same values for the fields kept here. Keys of
-features the port has not ported yet (visualisation, map saving, ROS) are
-ignored; the flags of features whose results it would change (consistency
-loss, incidence labels, data parallelism) are loaded so that
-`PinSLAMSystem` refuses them.
+adjustment, its map-based dynamic filter, its dataset layer and its entry
+point (`run.py`: paths, frame range, deskew, saving, localization) read:
+the same field names, defaults and YAML schema, so every config file of
+the repo loads into both packages and gives the same values for the fields
+kept here. Keys of features the port has not ported yet (the viewer, ROS)
+are ignored; the flags of features whose results it would change
+(consistency loss, incidence labels, data parallelism, the viewer) are
+loaded so that `PinSLAMSystem` or `run.py` refuses them.
 The `tpu` YAML section keeps its name; its static capacities size the
 port's fixed-capacity tensors the same way.
 """
@@ -32,16 +33,42 @@ def _next_pow2(n: int) -> int:
 @dataclass
 class Config:
     # ------------------------------------------------------------------ setting
+    name: str = "dummy"
+    run_name: str = "dummy"
+    run_path: str = ""
+    output_root: str = "./experiments"
+    pc_path: str = ""
+    pose_path: str = ""
+    calib_path: str = ""
+    label_path: str = ""
+
+    use_dataloader: bool = False
+    data_loader_name: str = "generic"
+    data_loader_seq: str = ""
+
+    load_model: bool = False
+    model_path: str = "/"
+
     first_frame_ref: bool = False
+    begin_frame: int = 0
     end_frame: int = 100000
+    step_frame: int = 1
+
     seed: int = 42
+
+    kitti_correction_on: bool = False
+    correction_deg: float = 0.0
     stop_frame_thre: int = 20
+
+    deskew: bool = False
+    lidar_type_guess: str = "velodyne"
 
     # semantic
     semantic_on: bool = False
     sem_class_count: int = 20
     sem_label_decimation: int = 1
     freespace_label_on: bool = False
+    filter_moving_object: bool = True
 
     # color / intensity
     color_map_on: bool = True
@@ -227,8 +254,14 @@ class Config:
     post_loop_iter_boost: int = 15
 
     # --------------------------------------------------------------------- eval
+    wandb_vis_on: bool = False
     silence: bool = True
+    o3d_vis_on: bool = False           # the viewer, not ported: refused
+    log_freq_frame: int = 2000
+    mesh_default_on: bool = False      # the viewer, not ported: refused
     mesh_freq_frame: int = 20
+    sdf_default_on: bool = False       # the viewer, not ported: refused
+    eval_traj_align: bool = True
 
     # --------------------------------------------------------------------- mesh
     mc_res_m: float = 0.3
@@ -238,6 +271,10 @@ class Config:
     mesh_min_nn: int = 8
     min_cluster_vertices: int = 300
     infer_bs: int = 4096
+
+    # ------------------------------------------------------------------- saving
+    save_map: bool = False
+    save_merged_pc: bool = False
     save_mesh: bool = False
 
     # ---------------------------------------------------------- static shapes
@@ -259,6 +296,7 @@ class Config:
 
     def finalize(self):
         """Compute derived parameters (reference: utils/config.py:556-562)."""
+        self.run_name = self.name
         self.infer_bs_final = self.bs * 32
         self.window_radius = max(self.max_range, 6.0)
         self.local_map_radius = self.max_range + 2.0
@@ -290,15 +328,34 @@ class Config:
     def load_dict(self, args: dict) -> "Config":
         s = args.get("setting", {})
         if s:
+            self.name = s.get("name", "pin_slam")
+            self.use_dataloader = s.get("use_kiss_icp_dataloader", False)
+            self.output_root = s.get("output_root", "./experiments")
+            self.pc_path = s.get("pc_path", "")
+            self.pose_path = s.get("pose_path", "")
+            self.calib_path = s.get("calib_path", "")
             self.semantic_on = s.get("semantic_on", self.semantic_on)
+            if self.semantic_on:
+                self.label_path = s.get("label_path", "./demo_data/labels")
             self.color_map_on = s.get("color_map_on", self.color_map_on)
             self.color_channel = s.get("color_channel", 0)
             self.color_on = bool(self.color_channel in (1, 3)
                                  and self.color_map_on)
+            self.load_model = s.get("load_model", self.load_model)
+            if self.load_model:
+                self.model_path = s.get("model_path", "")
             self.first_frame_ref = s.get("first_frame_ref", self.first_frame_ref)
+            self.begin_frame = s.get("begin_frame", 0)
             self.end_frame = s.get("end_frame", self.end_frame)
+            self.step_frame = s.get("step_frame", 1)
             self.seed = s.get("random_seed", self.seed)
+            self.kitti_correction_on = s.get("kitti_correct",
+                                             self.kitti_correction_on)
+            if self.kitti_correction_on:
+                self.correction_deg = s.get("correct_deg",
+                                            self.correction_deg)
             self.stop_frame_thre = s.get("stop_frame_thre", self.stop_frame_thre)
+            self.deskew = s.get("deskew", self.deskew)
 
         p = args.get("process", {})
         if p:
@@ -491,13 +548,21 @@ class Config:
 
         e = args.get("eval", {})
         if e:
+            self.wandb_vis_on = e.get("wandb_vis_on", self.wandb_vis_on)
             self.silence = e.get("silence_log", self.silence)
+            self.o3d_vis_on = e.get("o3d_vis_on", self.o3d_vis_on)
+            self.log_freq_frame = e.get("log_freq_frame", self.log_freq_frame)
             self.mesh_freq_frame = e.get("mesh_freq_frame", self.mesh_freq_frame)
+            self.sdf_default_on = e.get("sdf_default_on", self.sdf_default_on)
+            self.mesh_default_on = e.get("mesh_default_on",
+                                         self.mesh_default_on)
             self.mesh_min_nn = e.get("mesh_min_nn", self.mesh_min_nn)
             self.skip_top_voxel = e.get("skip_top_voxel", self.skip_top_voxel)
             self.min_cluster_vertices = e.get(
                 "min_cluster_vertices", self.min_cluster_vertices)
             self.mc_res_m = e.get("mc_res_m", self.voxel_size_m)
+            self.save_map = e.get("save_map", self.save_map)
+            self.save_merged_pc = e.get("save_merged_pc", self.save_merged_pc)
             self.save_mesh = e.get("save_mesh", self.save_mesh)
 
         # static shapes (absent in the reference configs)

@@ -169,7 +169,9 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     in float64). The distance uses the rounding of XLA's CPU code for the
     JAX kernel, fma(dz, dz, fma(dx, dx, dy * dy)), which the CUDA kernel
     repeats with __fmaf_rn."""
-    return (a.double() * b.double() + c.double()).float()
+    ad = a.double()
+    prod = ad * ad if b is a else ad * b.double()
+    return prod.add_(c.double()).float()
 
 
 def _knn_walk_plain(qs, lpts, tab, bbd, perm, k: int, max_dist2: float):
@@ -188,6 +190,7 @@ def _knn_walk_plain(qs, lpts, tab, bbd, perm, k: int, max_dist2: float):
     visits = torch.zeros(nq, dtype=torch.int32, device=dev)
     active = torch.ones(nq, dtype=torch.bool, device=dev)
     cols = torch.arange(TL, dtype=torch.int32, device=dev)
+    pos = torch.arange(k + TL, dtype=torch.int64, device=dev)
     for r in range(row_cap):
         active &= bbd[:, r] < bd[:, :, k - 1].amax(1)
         tiles = torch.nonzero(active).squeeze(1)
@@ -207,9 +210,12 @@ def _knn_walk_plain(qs, lpts, tab, bbd, perm, k: int, max_dist2: float):
         cat_d = torch.cat([bd[tiles], d2m], -1)
         col = (pid[:, None].to(torch.int32) * TL + cols[None])[:, None, :]
         cat_i = torch.cat([bi[tiles], col.expand(-1, TQ, -1)], -1)
-        sd, order = torch.sort(cat_d, dim=-1, stable=True)
-        nd = sd[..., :k]
-        ni = torch.gather(cat_i, -1, order[..., :k])
+        # the k smallest of a stable sort: d2 >= 0, so its float32 bits
+        # order like its values, and the position breaks ties
+        key = (cat_d.view(torch.int32).to(torch.int64) << 10) | pos
+        order = torch.topk(key, k, dim=-1, largest=False, sorted=True)[1]
+        nd = torch.gather(cat_d, -1, order)
+        ni = torch.gather(cat_i, -1, order)
         bd[tiles] = nd
         bi[tiles] = torch.where(nd < BIG, ni, -1)
     n = qs.shape[0]

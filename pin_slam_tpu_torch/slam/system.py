@@ -18,11 +18,16 @@ uncached colour path against a local set built each frame, and the samples
 train the colour head. With `semantic_on`, `process_frame(sem_labels=...)`
 labels the points and the samples train the semantic head.
 
+In localization mode (`load_map`) the decoders and the map are frozen: the
+join set is built once over the whole loaded map, every frame is tracked
+against it without the travel window, and no mapping, training, pruning or
+pool filtering is dispatched.
+
 The host keeps float64 pose chains and travel distance; the device works in
 float32 with a per-frame anchor (the last sensor position). The map grows
 its capacity when it passes 90 % of it. The brick-cache probe, incidence
-labels, the consistency loss, data parallelism and localization mode are
-not ported yet and raise NotImplementedError.
+labels, the consistency loss and data parallelism are not ported yet and
+raise NotImplementedError.
 
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
@@ -185,6 +190,8 @@ class PinSLAMSystem:
         self.decoder_freezed = c.decoder_freezed
         self.last_tracking = None
         self.last_train_losses = None
+        # the last training's {"loss": device scalar}, read by the logger
+        self.last_train_metrics = None
         self.last_ba_losses = None
         self.last_track_iters = -1
         # the dynamic filter's last verdict over the train cloud (rows <
@@ -198,6 +205,12 @@ class PinSLAMSystem:
         self.adaptive_iter_offset = 0
         self.last_did_map = False
         self.last_pull_block = 0.0
+        # localization mode (load_map): the frozen map's join set, built
+        # once, and its compact geometry and colour (or None) features
+        self.localization_mode = False
+        self._loc_lset = None
+        self._loc_feats = None
+        self._loc_cfeats = None
         # post-train local set + trained compact features, reused as the
         # next frame's tracker search structure
         self._cur_lset = None
@@ -610,8 +623,51 @@ class PinSLAMSystem:
         the JAX package's API."""
         self.after_pgo = on
 
+    def map_memory_mb(self) -> float:
+        """Neural-point map memory in MB: the per-point tensors count at
+        count/capacity of their rows (the reference's grow-on-demand
+        equivalent), the hash table whole."""
+        s = self.state
+        per_point = sum(
+            a.element_size() * int(np.prod(a.shape[1:])) * (a.shape[0] - 1)
+            for a in (s.positions, s.orientations, s.geo_features,
+                      s.ts_create, s.ts_update, s.certainty,
+                      s.color_features) if a is not None)
+        aux = s.table.element_size() * s.table.numel()
+        frac = int(s.count) / max(s.capacity, 1)
+        return (per_point * frac + aux) / (1024.0 ** 2)
+
     def load_map(self, path: str):
-        raise NotImplementedError("localization mode is not ported yet")
+        """Enter localization mode with a saved map (`utils/map_io`): the
+        map and the decoders are frozen, no mapping runs, and every frame
+        is tracked against the whole map (no travel window) through a join
+        set built here once over all live rows."""
+        from pin_slam_tpu_torch.utils.map_io import load_implicit_map
+
+        c = self.config
+        state, mlps, _ = load_implicit_map(path, capacity=c.map_capacity,
+                                           device=self.device)
+        self.state = state
+        self.params["geo_mlp"] = mlps["geo_mlp"]
+        for name, on in (("color_mlp", c.color_on),
+                         ("sem_mlp", c.semantic_on)):
+            if on and name in mlps:
+                self.params[name] = mlps[name]
+        self.sync_feature_params()
+        self.decoder_freezed = True
+        self.localization_mode = True
+        # a saved map may carry deformed orientations
+        self._map_deformed = bool((state.orientations[:, 1:4] != 0).any())
+        cnt = int(state.count)
+        cap = max(1, -(-cnt // kj.TL)) * kj.TL
+        live = torch.arange(state.capacity, device=self.device) < cnt
+        self._loc_lset = kj.build_local_set(
+            state.positions, live, c.voxel_size_m, cap,
+            certainty=state.certainty,
+            orientations=state.orientations if self._map_deformed else None)
+        self._loc_feats = self.params["geo_features"][self._loc_lset.gidx]
+        self._loc_cfeats = (None if state.color_features is None
+                            else state.color_features[self._loc_lset.gidx])
 
     # ------------------------------------------------------------ main loop
 
@@ -683,7 +739,13 @@ class PinSLAMSystem:
             T_init[:3, 3] -= anchor
             T_init_d = self._tensor(T_init)
             anchor_d = self._tensor(anchor)
-            if self._cur_lset is not None and not self._use_color_track:
+            if self.localization_mode:
+                # the frozen map's join set, built once by load_map
+                res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
+                    self._loc_feats, src_pts, src_n, T_init_d, td_host,
+                    anchor_d, frame_id, self._loc_lset,
+                    cfeats=self._loc_cfeats, src_attr=src_attr)
+            elif self._cur_lset is not None and not self._use_color_track:
                 # register against the previous frame's post-train local set
                 res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
                     self._cur_track_feats, src_pts, src_n, T_init_d, td_host,
@@ -726,14 +788,18 @@ class PinSLAMSystem:
             mapok_dev = torch.tensor(not self.lose_track, device=dev)
         do_map_dev = torch.tensor(host_force, device=dev) | (
             mapok_dev & (not stop_prev))
+        # localization mode dispatches no mapping, training, prune or pool
+        # filter
+        dispatched_map = not self.localization_mode
         pool_cadence = (frame_id + 1) % c.pool_filter_freq == 0
         # prune inactive low-certainty points; half-period phase offset so
         # it never lands on a pool-filter frame
-        if c.prune_map_on and (frame_id + 1 + c.prune_freq_frame // 2) \
+        if dispatched_map and c.prune_map_on and (
+                frame_id + 1 + c.prune_freq_frame // 2) \
                 % c.prune_freq_frame == 0:
             self.prune_and_rehash(frame_id, td_dev)
         static_mask = None
-        if c.dynamic_filter_on and frame_id > 0:
+        if dispatched_map and c.dynamic_filter_on and frame_id > 0:
             # judge valid rows only (pad rows sit at the sensor origin after
             # the transform and would widen the elevation band)
             rows = torch.arange(c.frame_point_cap, device=dev) < train_n
@@ -751,20 +817,22 @@ class PinSLAMSystem:
             self.last_static_mask = static_mask
             self.last_train_pts = train_pts
             self.last_train_n = train_n
-        new_ratio, new_obs_ratio = self.frame_update(
-            train_pts, train_n, T32_dev, frame_id, td_dev,
-            force_all_new=system_rebooted, do_map=do_map_dev,
-            insert_cap=(1 << 16) if host_force else (1 << 14),
-            static_mask=static_mask, train_attr=train_attr)
-        self.sync_feature_params()
-        if pool_cadence:
-            self.filter_pool(T32_dev[:3, 3])
+        if dispatched_map:
+            _, new_obs_ratio = self.frame_update(
+                train_pts, train_n, T32_dev, frame_id, td_dev,
+                force_all_new=system_rebooted, do_map=do_map_dev,
+                insert_cap=(1 << 16) if host_force else (1 << 14),
+                static_mask=static_mask, train_attr=train_attr)
+            self.sync_feature_params()
+            if pool_cadence:
+                self.filter_pool(T32_dev[:3, 3])
         self._sync()
 
         # ---- training: dispatched before the frame's host pull; its host
         # gates (lose-track, stop, adaptive iterations) lag one frame
         def run_training():
-            did_map = host_force or (not self.lose_track and not stop_prev)
+            did_map = dispatched_map and (
+                host_force or (not self.lose_track and not stop_prev))
             self.last_did_map = did_map
             if frame_id % c.mapping_freq_frame == 0 and did_map:
                 cur_iters = (c.iters * c.init_iter_ratio
@@ -789,7 +857,7 @@ class PinSLAMSystem:
         ba_due = (c.track_on and c.ba_freq_frame > 0
                   and (frame_id + 1) % c.ba_freq_frame == 0)
         # bundle adjustment needs this frame's pulled pose
-        lag_pull = not ba_due and not self._sync_timing
+        lag_pull = dispatched_map and not ba_due and not self._sync_timing
         if lag_pull:
             run_training()
 
@@ -803,9 +871,9 @@ class PinSLAMSystem:
         pull = []
         if tracked:
             pull += [res.valid, res.iterations, res.pose]
-        if c.adaptive_iters:
+        if dispatched_map and c.adaptive_iters:
             pull.append(new_obs_ratio)
-        if pool_cadence:
+        if dispatched_map and pool_cadence:
             pull.append(self.state.count)
         pull += [train_total, src_total]
         t_pull0 = time.time()
@@ -837,7 +905,7 @@ class PinSLAMSystem:
             self._update_odom_pose(frame_id, cur_pose)
 
         self.adaptive_iter_offset = 0
-        if c.adaptive_iters:
+        if dispatched_map and c.adaptive_iters:
             self.new_obs_ratio = float(flat[0])
             flat = flat[1:]
             if self.new_obs_ratio < c.new_sample_ratio_less:
@@ -847,7 +915,8 @@ class PinSLAMSystem:
                 if (frame_id > c.freeze_after_frame
                         and self.new_obs_ratio > c.new_sample_ratio_restart):
                     self.adaptive_iter_offset = 10
-        if pool_cadence and int(flat[0]) > 0.9 * c.map_capacity:
+        if dispatched_map and pool_cadence \
+                and int(flat[0]) > 0.9 * c.map_capacity:
             # capacity watchdog: grow before inserts start dropping points
             self.grow_map_capacity()
         t4 = time.time()
@@ -885,7 +954,8 @@ class PinSLAMSystem:
         self._cur_lset = lset
         self._cur_track_feats = self.state.geo_features[lset.gidx]
         self.last_train_losses = losses
-        return {"loss": losses[-1]}
+        self.last_train_metrics = {"loss": losses[-1]}
+        return self.last_train_metrics
 
     def _update_odom_pose(self, frame_id: int, cur_pose: np.ndarray):
         c = self.config

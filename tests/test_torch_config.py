@@ -222,3 +222,40 @@ def test_ba_and_dynamic_yamls_build_a_system(name, check):
     c.source_point_cap, c.max_frames = 1 << 8, 64
     system = PinSLAMSystem(c, device="cpu")
     assert system.state.capacity == 1 << 12
+
+
+SETTING_FIELDS = (
+    "name", "run_name", "output_root", "pc_path", "pose_path", "calib_path",
+    "label_path", "use_dataloader", "data_loader_name", "data_loader_seq",
+    "load_model", "model_path", "begin_frame", "end_frame", "step_frame",
+    "kitti_correction_on", "correction_deg", "stop_frame_thre", "deskew",
+    "lidar_type_guess", "filter_moving_object", "save_map",
+    "save_merged_pc", "save_mesh", "log_freq_frame", "silence",
+    "wandb_vis_on", "o3d_vis_on", "mesh_default_on", "sdf_default_on",
+    "eval_traj_align", "run_path")
+
+
+@pytest.mark.parametrize("field", SETTING_FIELDS)
+def test_setting_and_eval_field_kept_and_loaded_alike(field):
+    """Each `setting:` / `eval:` field the entry point and the dataset
+    layer read is a field of the port's Config with the JAX package's
+    default, and over every YAML of the repo it loads to the JAX package's
+    value (finalize() sets run_name to name, as the JAX package does)."""
+    assert field in {f.name for f in dataclasses.fields(TConfig)}
+    assert getattr(TConfig().finalize(), field) == \
+        getattr(JConfig().finalize(), field)
+    for path in YAMLS:
+        t, j = TConfig().load(path), JConfig().load(path)
+        assert getattr(t, field) == getattr(j, field), path
+
+
+def test_deskew_and_kitti_correction_parse():
+    """Eight shipped files turn deskew on; run_kitti.yaml corrects KITTI's
+    vertical angle by 0.195 deg and names its data paths."""
+    on = [p for p in YAMLS if TConfig().load(p).deskew]
+    assert len(on) == 8
+    c = TConfig().load(os.path.join(ROOT, "config", "lidar_slam",
+                                    "run_kitti.yaml"))
+    assert c.kitti_correction_on and c.correction_deg == 0.195
+    assert c.name == c.run_name == "kitti"
+    assert c.pc_path.endswith("velodyne") and c.calib_path

@@ -87,6 +87,18 @@ def test_knn_kernel_matches_plain_at_the_color_tracker_shape(cuda):
 
 
 @pytest.mark.cuda
+def test_knn_kernel_matches_plain_at_the_localization_shape(cuda):
+    """Localization's probe: a source cloud spread over the whole scan
+    (8192 queries, run_kitti.yaml's source cap, the tracker's 12
+    candidates) against the join set built once over a whole map (131072
+    rows, every one live)."""
+    qp, lp = _dense_case(cuda, n_q=8192, L=131072, seed=8)
+    got, ref = _walk_both(qp, lp, 12, 1.44)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_knn_kernel_refuses_a_misaligned_local_set(cuda):
     """A local set one row (12 bytes) into its storage is not 16-byte
     aligned, which the kernel's 16-byte copies need: the wrapper raises

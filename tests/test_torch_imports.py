@@ -54,6 +54,35 @@ def test_color_semantic_slice_modules_listed(mod):
     assert f"pin_slam_tpu_torch.{mod}" in _modules()
 
 
+@pytest.mark.parametrize("mod", [
+    "run", "vis_map", "utils.map_io", "utils.logger", "dataset.io",
+    "dataset.slam_dataset", "dataset.dataset_indexing",
+    "dataset.dataloaders", "dataset.dataloaders.generic",
+    "dataset.dataloaders.kitti", "dataset.dataloaders.colorize"])
+def test_entry_point_slice_modules_listed(mod):
+    """The modules of the entry-point slice (the CLI, map save / load, the
+    host dataset layer) are walked by the import check below, so none of
+    them loads jax or the JAX package."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
+def test_run_imports_no_plotting_or_image_library():
+    """The CLI and its dataset layer load matplotlib and PIL only where a
+    feature needs them (PIL: the KITTI loader's camera colours)."""
+    code = (
+        "import sys\n"
+        "import pin_slam_tpu_torch.run, pin_slam_tpu_torch.vis_map\n"
+        "import pin_slam_tpu_torch.dataset.slam_dataset\n"
+        "import pin_slam_tpu_torch.dataset.dataloaders.kitti\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('matplotlib', 'PIL', 'jax', 'pin_slam_tpu'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_chip_smoke_imports_torch_package_only():
     import ast
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
