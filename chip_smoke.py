@@ -78,7 +78,8 @@
    heading turning 1.34 deg a frame) round the island of make_sequence's
    room, whose far walls lie beyond the 15 m range. Cuts: synthetic scans
    (no NCD data is in the repo); no sweep and process_frame driven directly,
-   so the config's `deskew` is not exercised (`[run]` deskews); 40 frames. It fails unless no
+   so the config's `deskew` is not exercised (`[bag]` runs this YAML
+   deskewed from a bag through the entry point); 40 frames. It fails unless no
    frame is invalid, BA ran exactly on frames 19 and 39, each BA's last
    loss is below its first, the pose chain after each BA is BA's output,
    POOL_SAMPLE pool rows moved by the correction of their own timestamp
@@ -175,12 +176,38 @@
    candidates, against the frozen set) must be bit-equal to its plain
    version. Prints ms/frame, GN iterations, k-NN launches a frame, the
    frozen set's size and the kernel's time, plain time and bound.
+13. A ROS1 bag (`[bag]`): config/lidar_slam/run_ncd_128_s.yaml as shipped
+   (`[ba]`'s configuration: BA every 20 frames, its `pgo:` section through
+   LoopPgoManager's hook, weighted_first false, deskew) run as a user runs
+   it, `python -m pin_slam_tpu_torch.run <yaml> rosbag -i <dir> -o <out>
+   -d --deskew -s -m` (in-process, through `run.main`), over BAG_FRAMES
+   frames of `[ba]`'s OS0-128 walk scanned as the sensor scans it: each
+   column fired from the pose of its instant, written by the port's
+   `write_bag1` as one uncompressed bag of organised 128 x 1024
+   PointCloud2 messages in the ouster_ros package's layout (x, y, z,
+   intensity, `t` in uint32 ns from the scan's start, reflectivity, ring,
+   ambient, range; point_step 48; rays without a return at (0, 0, 0)) on
+   BAG_TOPIC. Cuts: synthetic scans, 20 frames. A bag carries no ground
+   truth: the phase scores the written poses against the mid-scan truth
+   in the first scan's frame. It fails unless every artifact is written,
+   no frame is invalid, every odometry and PGO pose is within 0.09 m x
+   frames, BA ran once (frame 19) and lowered its loss, the k-NN kernel
+   launched and the fused decode launched once per grid batch of the
+   final mesh, the final mesh is not empty and the median distance of its
+   vertices to the scene is <= MAX_MESH_MEDIAN_M, every frame the rosbag
+   loader returns is the cloud written (bit for bit, `t` normalised as
+   read_point_cloud2 does) and so are the first 3 written again as MCAP
+   and read by McapDataloader, and deskew brings frames BAG_DESKEW_FRAMES
+   closer to the scene. Prints process_frame's ms/frame, GN iterations,
+   k-NN launches a frame, BA's device ms, the ATE, the host's bag read and
+   deskew ms a frame (timed apart from process_frame), the bag's size and
+   the peak device memory.
 
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
 CUDA device is present or any phase fails. `--only color,semantic` (any of
-slice, mesh, loop, ba, dynamic, color, semantic, run, localize; localize
-runs run first) runs the build, the kernel checks and the phases named, and
+slice, mesh, loop, ba, dynamic, color, semantic, run, localize, bag;
+localize runs run first) runs the build, the kernel checks and the phases named, and
 prints neither line: a quicker check while working.
 """
 
@@ -243,6 +270,12 @@ RUN_FRAMES = 30
 RUN_DESKEW_FRAMES = (10, 20, 29)
 KITTI_CORRECT_DEG = 0.195      # run_kitti.yaml's kitti_correct / correct_deg
 LOC_ATE_SLACK_M = 0.02
+BAG_FRAMES = 20                # run_ncd_128_s.yaml's BA runs once, on 19
+BAG_DESKEW_FRAMES = (10, 19)
+BAG_TOPIC = "/os_cloud_node/points"   # the ouster_ros package's topic
+OS_ROWS, OS_COLS = 128, 1024   # Ouster OS0-128 in its 1024 x 10 Hz mode
+SCAN_NS = 100_000_000
+BAG_ROOM_HALF_HEIGHT_M = 6.0   # make_ncd_sequence's floor and ceiling
 
 
 def log(*a):
@@ -287,7 +320,8 @@ def make_sequence(n_frames):
         SyntheticSequence, circle_trajectory, default_scene,
         lidar_directions)
     return SyntheticSequence(
-        scene_sdf=default_scene(half_extent=(40.0, 30.0, 6.0)),
+        scene_sdf=default_scene(half_extent=(40.0, 30.0,
+                                             BAG_ROOM_HALF_HEIGHT_M)),
         poses=circle_trajectory(n_frames, radius=6.0,
                                 revolutions=0.008 * n_frames,
                                 ease_in_frames=4),
@@ -327,7 +361,8 @@ def make_loop_sequence(n_frames=LOOP_FRAMES, radius=6.0, revolutions=1.2,
         SyntheticSequence, circle_trajectory, default_scene,
         lidar_directions)
     return SyntheticSequence(
-        scene_sdf=default_scene(half_extent=(40.0, 30.0, 6.0)),
+        scene_sdf=default_scene(half_extent=(40.0, 30.0,
+                                             BAG_ROOM_HALF_HEIGHT_M)),
         poses=circle_trajectory(n_frames, radius=radius,
                                 revolutions=revolutions, ease_in_frames=4,
                                 yaw_follow=yaw_follow),
@@ -1047,7 +1082,8 @@ def make_ncd_sequence(n_frames=BA_FRAMES):
     vel[:4] = ramp * ramp * (3 - 2 * ramp)
     arc = NCD_STEP_M * vel[:-1].sum()
     return SyntheticSequence(
-        scene_sdf=default_scene(half_extent=(40.0, 30.0, 6.0)),
+        scene_sdf=default_scene(half_extent=(40.0, 30.0,
+                                             BAG_ROOM_HALF_HEIGHT_M)),
         poses=circle_trajectory(n_frames, radius=NCD_RADIUS_M,
                                 revolutions=arc / (2 * np.pi * NCD_RADIUS_M),
                                 ease_in_frames=4),
@@ -1057,6 +1093,40 @@ def make_ncd_sequence(n_frames=BA_FRAMES):
 
 def _ncd_frame(i):
     return make_ncd_sequence().frame(i)
+
+
+# the ouster_ros package's point layout: (name, offset, PointField datatype)
+OUSTER_FIELDS = (("x", 0, 7), ("y", 4, 7), ("z", 8, 7), ("intensity", 16, 7),
+                 ("t", 20, 6), ("reflectivity", 24, 4), ("ring", 26, 4),
+                 ("ambient", 28, 4), ("range", 32, 6))
+OUSTER_POINT_STEP = 48
+
+
+def ouster_cloud(xyz, t_ns):
+    """An organised H x W sensor_msgs/PointCloud2 in the ouster_ros
+    package's layout (OUSTER_FIELDS, point_step 48): xyz [H, W, 3] float32,
+    (0, 0, 0) where a ray has no return; t_ns [W] uint32, each column's
+    time from the scan's start; range in mm, ring the row, intensity,
+    reflectivity and ambient made from the range."""
+    from pin_slam_tpu_torch.utils import point_cloud2 as pc2
+    h, w = xyz.shape[:2]
+    fields = [pc2._Field(n, o, d) for n, o, d in OUSTER_FIELDS]
+    arr = np.zeros((h, w), pc2.fields_to_dtype(fields, OUSTER_POINT_STEP))
+    for i, c in enumerate("xyz"):
+        arr[c] = xyz[..., i]
+    mm = np.round(np.linalg.norm(xyz.astype(np.float64), axis=-1) * 1e3)
+    arr["range"] = mm
+    arr["t"] = np.broadcast_to(np.asarray(t_ns, np.uint32), (h, w))
+    arr["ring"] = np.arange(h)[:, None]
+    arr["intensity"] = (mm % 1000.0).astype(np.float32)
+    arr["reflectivity"] = mm % 255
+    arr["ambient"] = mm % 4096
+    msg = pc2.SimplePointCloud2.__new__(pc2.SimplePointCloud2)
+    msg.fields, msg.height, msg.width = fields, h, w
+    msg.is_bigendian = False
+    msg.point_step, msg.row_step = OUSTER_POINT_STEP, OUSTER_POINT_STEP * w
+    msg.data = arr.tobytes()
+    return msg
 
 
 def mos_config(Config):
@@ -1830,21 +1900,33 @@ def run_yaml(root, name, **setting):
 class SystemSpy:
     """Records, while active, what the entry point's PinSLAMSystem did:
     the system itself, each frame's tracker validity, GN iterations and
-    host seconds, and the training runs. Wraps the class's process_frame
-    and train and restores them on exit."""
+    host seconds, the training runs, each bundle adjustment (frame, device
+    ms, loss curve), the host seconds of the dataset's frame reads and
+    deskews, and the meshers that meshed a map. Wraps the methods and
+    restores them on exit."""
 
     def __enter__(self):
+        from pin_slam_tpu_torch.dataset.slam_dataset import SLAMDataset
+        from pin_slam_tpu_torch.slam import system as sysmod
+        from pin_slam_tpu_torch.slam.mesher import Mesher
         from pin_slam_tpu_torch.slam.system import PinSLAMSystem
         self.cls = PinSLAMSystem
-        self.orig = (PinSLAMSystem.process_frame, PinSLAMSystem.train)
+        self.saved = [(PinSLAMSystem, "process_frame"),
+                      (PinSLAMSystem, "train"),
+                      (sysmod, "run_bundle_adjustment"),
+                      (SLAMDataset, "read_frame_sem"),
+                      (SLAMDataset, "deskew"), (Mesher, "recon_map_mesh")]
+        self.orig = [getattr(o, n) for o, n in self.saved]
         self.system, self.valid, self.iters, self.secs = None, [], [], []
         self.trains = 0
+        self.ba, self.read_s, self.deskew_s, self.meshers = [], [], [], []
         spy = self
+        pf, train, run_ba, read, deskew, recon = self.orig
 
         def process_frame(sysm, frame_id, *a, **k):
             spy.system = sysm
             t0 = time.time()
-            out = spy.orig[0](sysm, frame_id, *a, **k)
+            out = pf(sysm, frame_id, *a, **k)
             tr = sysm.last_tracking
             spy.valid.append(frame_id == 0 or (tr is not None
                                                and bool(tr.valid)))
@@ -1852,16 +1934,43 @@ class SystemSpy:
             spy.iters.append(sysm.last_track_iters)
             return out
 
-        def train(sysm, *a, **k):
+        def train_(sysm, *a, **k):
             spy.trains += 1
-            return spy.orig[1](sysm, *a, **k)
+            return train(sysm, *a, **k)
 
-        PinSLAMSystem.process_frame = process_frame
-        PinSLAMSystem.train = train
+        def run_ba_(sysm, frame_id, *a, **k):
+            import torch
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = run_ba(sysm, frame_id, *a, **k)
+            e1.record()
+            torch.cuda.synchronize()
+            spy.ba.append(dict(frame=frame_id, ms=e0.elapsed_time(e1),
+                               losses=sysm.last_ba_losses.cpu().numpy()))
+            return out
+
+        def timed(fn, out):
+            def wrapped(*a, **k):
+                t0 = time.time()
+                res = fn(*a, **k)
+                out.append(time.time() - t0)
+                return res
+            return wrapped
+
+        def recon_(mesher, *a, **k):
+            spy.meshers.append(mesher)
+            return recon(mesher, *a, **k)
+
+        for (o, n), f in zip(self.saved, (
+                process_frame, train_, run_ba_, timed(read, self.read_s),
+                staticmethod(timed(deskew, self.deskew_s)), recon_)):
+            setattr(o, n, f)
         return self
 
     def __exit__(self, *exc):
-        self.cls.process_frame, self.cls.train = self.orig
+        for (o, n), f in zip(self.saved, self.orig):
+            setattr(o, n, staticmethod(f) if n == "deskew" else f)
         return False
 
 
@@ -2080,14 +2189,257 @@ def phase_localize(frames, seq, root, run_dir, run_ate):
         knn_per_frame=knn_launches / max(n - 1, 1))
 
 
+def raycast_from(scene_sdf, origins, dirs, max_range, iters=96, tol=1e-4):
+    """synthetic.raycast with an origin of its own for every ray: depths
+    [N], np.inf where no hit within max_range."""
+    t = np.zeros(dirs.shape[0])
+    act = np.arange(dirs.shape[0])
+    for _ in range(iters):
+        d = scene_sdf(origins[act] + t[act, None] * dirs[act])
+        ta = np.minimum(t[act] + np.maximum(d, 0.0) * 0.95, max_range * 1.01)
+        t[act] = ta
+        act = act[~((np.abs(d) < tol) | (ta >= max_range))]
+        if act.size == 0:
+            break
+    hit = (np.abs(scene_sdf(origins + t[:, None] * dirs)) < 5e-3) \
+        & (t < max_range)
+    return np.where(hit, t, np.inf)
+
+
+def bag_frame(i):
+    """Frame i of the `[bag]` walk (make_ncd_sequence's, BAG_FRAMES + 1
+    poses) as an Ouster OS0-128 gives it: an organised OS_ROWS x OS_COLS
+    scan, the top beam first, column c fired at c / OS_COLS of the scan
+    from the
+    pose of that instant (the sensor moves during the sweep), points in
+    the sensor frame of their instant and (0, 0, 0) where a ray has no
+    return. Returns (xyz [OS_ROWS, OS_COLS, 3] float32, t_ns [OS_COLS]
+    uint32)."""
+    from pin_slam_tpu_torch.dataset.synthetic import lidar_directions
+    seq = make_ncd_sequence(BAG_FRAMES + 1)
+    dirs = lidar_directions(OS_COLS, OS_ROWS,
+                            el_range=(-45.0, 45.0)).reshape(OS_COLS,
+                                                            OS_ROWS, 3)
+    frac = np.arange(OS_COLS) / OS_COLS
+    T = np.stack([seq._pose_at(i, f) for f in frac])
+    world = np.einsum("cij,crj->cri", T[:, :3, :3], dirs)
+    org = np.broadcast_to(T[:, None, :3, 3], world.shape)
+    depth = raycast_from(seq.scene_sdf, org.reshape(-1, 3),
+                         world.reshape(-1, 3), seq.max_range)
+    hit = np.isfinite(depth)
+    xyz = np.where(hit[:, None], dirs.reshape(-1, 3)
+                   * np.where(hit, depth, 0.0)[:, None], 0.0)
+    xyz = xyz.astype(np.float32).reshape(OS_COLS, OS_ROWS, 3).transpose(
+        1, 0, 2)
+    return (np.ascontiguousarray(xyz[::-1]),
+            np.round(frac * SCAN_NS).astype(np.uint32))
+
+
+def read_back(loader, grids):
+    """True when every frame of the loader is the written cloud: float32
+    points as float64 in row-major order, `t` normalised to [0, 1] as
+    read_point_cloud2 does."""
+    if len(loader) != len(grids):
+        return False
+    for k, (xyz, t_ns) in enumerate(grids):
+        d = loader[k]
+        t = np.broadcast_to(t_ns.astype(np.float64), xyz.shape[:2]).ravel()
+        if not (np.array_equal(d["points"],
+                               xyz.reshape(-1, 3).astype(np.float64))
+                and np.array_equal(d["point_ts"], (t - t.min())
+                                   / (t.max() - t.min()))):
+            return False
+    return True
+
+
+def phase_bag(grids, seq, root):
+    """run_ncd_128_s.yaml through the entry point from a ROS1 bag, as a user
+    runs it: `python -m pin_slam_tpu_torch.run <yaml> rosbag -i <dir> -o
+    <out> -d --deskew -s -m`, in-process. Returns both kernels' launches
+    and the figures."""
+    import torch
+    from pin_slam_tpu_torch import run as trun
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.dataset import mcap1, rosbag1
+    from pin_slam_tpu_torch.dataset.dataloaders.mcap import McapDataloader
+    from pin_slam_tpu_torch.dataset.dataloaders.rosbag import RosbagDataset
+    from pin_slam_tpu_torch.dataset.slam_dataset import SLAMDataset
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.utils.eval_traj import absolute_error
+
+    n = len(grids)
+    cfg_path = os.path.join(ROOT, "config", "lidar_slam",
+                            "run_ncd_128_s.yaml")
+    bag_dir = os.path.join(root, "bag")
+    os.makedirs(bag_dir)
+    t0 = time.time()
+    rosbag1.write_bag1(os.path.join(bag_dir, "ncd_walk.bag"),
+                       [ouster_cloud(*g) for g in grids], topic=BAG_TOPIC)
+    bag_mb = os.path.getsize(os.path.join(bag_dir, "ncd_walk.bag")) / 2**20
+    log(f"[bag] wrote {n} organised {grids[0][0].shape[0]} x "
+        f"{grids[0][0].shape[1]} Ouster clouds (point_step "
+        f"{OUSTER_POINT_STEP}, {int((grids[0][0] != 0).any(-1).sum())} "
+        f"returns in frame 0) on {BAG_TOPIC}: {bag_mb:.1f} MiB in "
+        f"{time.time() - t0:.1f} s")
+    # the truth: the mid-scan poses, in the frame of the first scan (the
+    # run starts at the identity; a bag carries no ground truth)
+    gt_abs = mid_scan_poses(seq)[:n]
+    gt = np.linalg.inv(gt_abs[0]) @ gt_abs
+    out_dir = os.path.join(root, "bag_out")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with SystemSpy() as spy:
+        kj.LAUNCHES = 0
+        fd.LAUNCHES = 0
+        trun.main([cfg_path, "rosbag", "-i", bag_dir, "-o", out_dir, "-d",
+                   "--deskew", "-s", "-m"])
+        knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    run_dir = os.path.join(out_dir, sorted(os.listdir(out_dir))[0])
+    cfg = Config().load(cfg_path)
+    missing = [f for f in ("odom_poses_kitti.txt", "odom_poses_tum.txt",
+                           "slam_poses_kitti.txt", "time_table.npy",
+                           "model/pin_map.npz", "map/neural_points.ply",
+                           "meta/config_all.yaml")
+               if not os.path.exists(os.path.join(run_dir, f))]
+    meshes = sorted(os.listdir(os.path.join(run_dir, "mesh")))
+    if missing or not meshes:
+        raise AssertionError(f"[bag] missing artifacts: {missing}, meshes "
+                             f"{meshes}")
+    # the YAML's pgo: section writes the PGO chain beside the odometry
+    odom, err = pose_errors(os.path.join(run_dir, "odom_poses_kitti.txt"),
+                            gt)
+    slam, slam_err = pose_errors(
+        os.path.join(run_dir, "slam_poses_kitti.txt"), gt)
+    chains = [("odometry", odom, err), ("PGO", slam, slam_err)]
+    ate = {name: absolute_error(gt, est, align_on=False)[0]
+           for name, est, _ in chains}
+    steady = np.asarray(spy.secs[min(WARMUP, n - 1):]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mesher = spy.meshers[-1]     # the final mesh's (its file exists)
+    log(f"[bag] run_ncd_128_s.yaml from the bag through the entry point: "
+        f"{n} frames in {wall:.1f} s (the run, the final mesh and the "
+        f"saves); process_frame median {np.median(steady):.1f} ms over the "
+        f"steady frames ({1e3 / np.median(steady):.3f} fps); GN iterations "
+        f"a frame mean {np.mean(spy.iters[1:]):.1f}; knn_join launches "
+        f"{knn_launches} ({knn_launches / n:.1f} a frame), fused_decode "
+        f"{fd_launches} (final mesh: "
+        f"{mesher.n_batches} grid batches, route {mesher.decode_route}); "
+        f"host bag read "
+        f"{np.median(spy.read_s) * 1e3:.1f} ms and deskew "
+        f"{np.median(spy.deskew_s) * 1e3:.1f} ms a frame (medians, apart "
+        f"from process_frame); ATE (RMSE, no alignment, against the "
+        f"mid-scan truth) " + ", ".join(
+            f"{k} {v * 100:.2f} cm" for k, v in ate.items())
+        + f", max pose error {err.max() * 100:.2f} cm; "
+        f"{int(spy.system.state.count)} map points; trainings "
+        f"{spy.trains}; peak device memory {peak:.2f} GiB")
+    for b in spy.ba:
+        ls = b["losses"]
+        log(f"[bag] BA at frame {b['frame']}: {len(ls)} iterations in "
+            f"{b['ms']:.1f} ms on the device; loss {ls[0]:.6f} -> "
+            f"{ls[-1]:.6f}")
+    if not all(spy.valid) or len(spy.valid) != n:
+        raise AssertionError("[bag] the tracker lost track in frames "
+                             f"{[i for i, v in enumerate(spy.valid) if not v]}")
+    for _, _, e in chains:
+        check_drift(e, 0.09 * n)
+    due = [f for f in range(n) if (f + 1) % cfg.ba_freq_frame == 0]
+    if [b["frame"] for b in spy.ba] != due or not due:
+        raise AssertionError(f"[bag] BA ran on frames "
+                             f"{[b['frame'] for b in spy.ba]}, not {due}")
+    for b in spy.ba:
+        if not (np.isfinite(b["losses"][-1])
+                and b["losses"][-1] < b["losses"][0]):
+            raise AssertionError(f"[bag] BA at frame {b['frame']} did not "
+                                 f"lower its loss")
+    if knn_launches <= 0:
+        raise AssertionError("[bag] the run never launched the knn_join "
+                             "kernel")
+    if (mesher.decode_route != "fused_decode" or fd_launches <= 0
+            or fd_launches != mesher.n_batches):
+        raise AssertionError(
+            f"[bag] the final mesh ran {mesher.n_batches} grid "
+            f"batches on the {mesher.decode_route} route but the "
+            f"fused decode kernel was launched {fd_launches} times")
+
+    # the final mesh, moved into the scene's frame by the first truth pose
+    verts = read_ply_vertices(os.path.join(run_dir, "mesh", meshes[0]))
+    T0 = gt_abs[0]
+    world = verts.astype(np.float64) @ T0[:3, :3].T + T0[:3, 3]
+    med = float(np.median(np.abs(seq.scene_sdf(world))))
+    log(f"[bag] final mesh {meshes[0]}: {len(verts)} vertices, median "
+        f"distance of its vertices to the scene {med:.4f} m (bound "
+        f"{MAX_MESH_MEDIAN_M} m); marching "
+        f"{mesher.marching_seconds:.2f} s")
+    if len(verts) == 0 or med > MAX_MESH_MEDIAN_M:
+        raise AssertionError(f"[bag] mesh of {len(verts)} vertices, median "
+                             f"{med} m off the scene")
+
+    # the readers: every frame as written; the first three again as MCAP
+    t0 = time.time()
+    same_bag = read_back(RosbagDataset(bag_dir), grids)
+    read_s = time.time() - t0
+    mcap_path = os.path.join(root, "first3.mcap")
+    mcap1.write_mcap(mcap_path, [ouster_cloud(*g) for g in grids[:3]],
+                     topic=BAG_TOPIC)
+    same_mcap = read_back(McapDataloader(mcap_path), grids[:3])
+    log(f"[bag] the loader's frames equal the written clouds: bag "
+        f"{same_bag} ({n} frames read in {read_s:.2f} s), MCAP of the "
+        f"first 3 {same_mcap}")
+    if not (same_bag and same_mcap):
+        raise AssertionError("[bag] a reader did not return the clouds "
+                             "that were written")
+
+    # deskew, as the run did it (the relative motion of the two frames
+    # before, from the written odometry): the deskewed scan placed with the
+    # true mid-scan pose lies closer to the scene than the raw scan. Scored
+    # on the returns within the crop's range off the floor and ceiling:
+    # the walk moves along those planes, so no motion distorts them.
+    cfg.use_dataloader, cfg.data_loader_name = True, "rosbag"
+    cfg.data_loader_seq, cfg.pc_path = "", bag_dir
+    data = SLAMDataset(cfg)
+    ratios = []
+    for i in BAG_DESKEW_FRAMES:
+        if i >= n:
+            continue
+        pts, ts = data.read_frame(i)
+        desk = data.deskew(pts, ts, np.linalg.inv(odom[i - 2]) @ odom[i - 1])
+        T = gt_abs[i]
+        raw_w, desk_w = (p @ T[:3, :3].T + T[:3, 3] for p in (pts, desk))
+        r = np.linalg.norm(pts, axis=1)
+        keep = (r > cfg.min_range) & (r < cfg.max_range) \
+            & (np.abs(raw_w[:, 2]) < BAG_ROOM_HALF_HEIGHT_M - 0.3)
+        d_raw, d_desk = (float(np.median(np.abs(seq.scene_sdf(w[keep]))))
+                         for w in (raw_w, desk_w))
+        ratios.append((i, d_raw, d_desk, int(keep.sum())))
+    log("[bag] deskew: median |scene SDF| on the true mid-scan pose, raw -> "
+        "deskewed, over the returns off the floor and ceiling: " + ", ".join(
+            f"frame {i} {a * 100:.2f} -> {b * 100:.2f} cm ({m} returns)"
+            for i, a, b, m in ratios))
+    if not ratios or not all(b < a for _, a, b, _ in ratios):
+        raise AssertionError(f"[bag] deskew does not bring the scans closer "
+                             f"to the scene: {ratios}")
+    return knn_launches, fd_launches, dict(
+        ms=float(np.median(steady)), ate_m=ate,
+        gn_iters=float(np.mean(spy.iters[1:])),
+        knn_per_frame=knn_launches / n, ba_ms=[b["ms"] for b in spy.ba],
+        read_ms=float(np.median(spy.read_s) * 1e3),
+        deskew_ms=float(np.median(spy.deskew_s) * 1e3), bag_mib=bag_mb,
+        wall_s=wall, peak_gib=peak)
+
+
 def make_frames(pool, fn, args):
     """fn over args in the pool's spawned worker processes (frame i of a
     sequence)."""
     t0 = time.time()
     frames = pool.map(fn, args)
     first = frames[0][0] if isinstance(frames[0], tuple) else frames[0]
-    log(f"[data] {len(frames)} frames of {fn.__name__}, {first.shape[0]} "
-        f"points in frame 0, {time.time() - t0:.1f} s")
+    log(f"[data] {len(frames)} frames of {fn.__name__}, "
+        f"{int(np.prod(first.shape[:-1]))} points in frame 0, "
+        f"{time.time() - t0:.1f} s")
     return frames
 
 
@@ -2095,7 +2447,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
                     help="comma-separated phases (slice, mesh, loop, ba, "
-                    "dynamic, color, semantic, run, localize) after the "
+                    "dynamic, color, semantic, run, localize, bag) after the "
                     "kernel checks; prints no result")
     only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
@@ -2207,6 +2559,17 @@ def run_phases(only, dev, pool):
             out["localize"] = (knn_loc, fd_loc)
             kres.append(loc_shape)
         shutil.rmtree(root, ignore_errors=True)
+    if want("bag"):
+        grids = make_frames(pool, bag_frame, range(BAG_FRAMES))
+        root = os.path.join(ROOT, "build", "chip_smoke_bag")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        knn_bag, fd_bag, _ = phase_bag(
+            grids, make_ncd_sequence(BAG_FRAMES + 1), root)
+        out["bag"] = (knn_bag, fd_bag)
+        del grids
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
     if only:
         log(f"[only] {', '.join(only)}: done; a partial run prints no "
             "result")
@@ -2233,6 +2596,7 @@ def run_phases(only, dev, pool):
         "launches_semantic_path": out["semantic"][0],
         "launches_run_path": out["run"][0],
         "launches_localize_path": out["localize"][0],
+        "launches_bag_path": out["bag"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -2249,6 +2613,7 @@ def run_phases(only, dev, pool):
         "launches_semantic_path": out["semantic"][1],
         "launches_run_path": out["run"][1],
         "launches_localize_path": out["localize"][1],
+        "launches_bag_path": out["bag"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

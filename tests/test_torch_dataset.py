@@ -18,6 +18,7 @@ from pin_slam_tpu_torch.config import Config as TConfig
 from pin_slam_tpu_torch.dataset import dataset_indexing as tdi
 from pin_slam_tpu_torch.dataset import io as tio
 from pin_slam_tpu_torch.dataset import slam_dataset as tsd
+from pin_slam_tpu_torch.dataset.dataloaders import available_dataloaders
 from pin_slam_tpu_torch.dataset.dataloaders import dataset_factory as t_factory
 from pin_slam_tpu_torch.dataset.synthetic import (
     SyntheticSequence, circle_trajectory, default_scene, lidar_directions)
@@ -314,11 +315,23 @@ def test_generic_loader_and_dataset_over_a_loader(disk):
         _same(a, b)
 
 
-@pytest.mark.parametrize("name", ["kitti_raw", "mulran", "rosbag",
-                                  "ouster", "nuscenes"])
-def test_unported_loaders_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_factory(name, "/nowhere")
+@pytest.mark.parametrize("name", [n for n in available_dataloaders()
+                                  if n != "synthetic"])
+def test_factory_serves_every_loader(name, disk, tmp_path):
+    """Every loader name of the JAX factory gives the port's own class of
+    the same name (files from tests/test_torch_dataloaders.py's writers)."""
+    if name in ("generic", "kitti"):
+        path, args = (str(disk[0] / "ply"), ()) if name == "generic" else \
+            (str(disk[0] / "kitti"), ("00",))
+        kw = {}
+    else:
+        from test_torch_dataloaders import BUILDERS
+        path, args, kw = BUILDERS[name](tmp_path)
+    t = t_factory(name, path, *args, **kw)
+    j = j_factory(name, path, *args, **kw)
+    assert type(t).__module__ == type(j).__module__.replace(
+        "pin_slam_tpu.", "pin_slam_tpu_torch.", 1)
+    assert type(t).__name__ == type(j).__name__ and len(t) == len(j) > 0
 
 
 def test_unknown_loader_raises():

@@ -66,6 +66,51 @@ def test_entry_point_slice_modules_listed(mod):
     assert f"pin_slam_tpu_torch.{mod}" in _modules()
 
 
+DATASET_SLICE = [
+    "utils.point_cloud2", "dataset.rosbag1", "dataset.mcap1",
+    "dataset.converter", "dataset.converter.to_pin_format"] + [
+    f"dataset.dataloaders.{m}" for m in (
+        "rosbag", "mcap", "ouster", "ncd", "mulran", "colorize", "kitti_raw",
+        "kitti360", "kitti_mot", "nclt", "boreas", "apollo", "paris_luco",
+        "helipr", "nuscenes", "rgbd_utils", "replica", "tum")]
+
+
+@pytest.mark.parametrize("mod", DATASET_SLICE)
+def test_dataset_slice_modules_listed(mod):
+    """The modules of the data-loader slice (the loaders, the ROS1 bag,
+    MCAP and pcap readers, the converter) are walked by the import checks
+    here, so none of them loads jax, the JAX package, PIL or ROS."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
+def test_every_module_imports_without_pil_and_ros():
+    """With PIL and sensor_msgs blocked, every module of the port still
+    imports: the loaders import them where a frame or a message needs
+    them, and that call raises ImportError naming the package."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['sensor_msgs'] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from pin_slam_tpu_torch.dataset.dataloaders import rgbd_utils\n"
+        "from pin_slam_tpu_torch.utils import point_cloud2\n"
+        "for call in (lambda: rgbd_utils.backproject_rgbd("
+        "'a', 'b', 1, 1, 0, 0, 1.0),\n"
+        "             lambda: point_cloud2.make_point_cloud2("
+        "[[0.0, 0, 0]])):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        print('RAISED', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    raised = out.stdout.splitlines()
+    assert len(raised) == 2, out.stdout
+    assert "PIL" in raised[0] and "sensor_msgs" in raised[1], out.stdout
+
+
 def test_run_imports_no_plotting_or_image_library():
     """The CLI and its dataset layer load matplotlib and PIL only where a
     feature needs them (PIL: the KITTI loader's camera colours)."""

@@ -173,3 +173,59 @@ def test_localized_poses_agree_and_the_map_is_untouched(loaded, saved_map):
             np.testing.assert_array_equal(t0[k][: t0["count"]],
                                           j0[k][: j0["count"]], err_msg=k)
     assert t0["count"] == j0["count"]
+
+
+def test_color_localization_tracks_the_sets_own_rows(tmp_path):
+    """A stated departure from the reference (ROADMAP.md, settled): in
+    localization mode the port's colour tracker reads the colour features
+    of the frozen join set's own rows (`_loc_cfeats`, the whole map's
+    colour features gathered at the set's global rows), as it reads the
+    geometric ones. The JAX package hands the tracker the whole map's
+    `params["color_features"]` with the set's local row indices
+    (pin_slam_tpu/slam/system.py:872-899), so it reads map row i for local
+    row i: the two agree only where a local row is the map row of the same
+    index. Both load one saved colour map and build the same set."""
+    from pin_slam_tpu_torch.dataset.synthetic import procedural_color
+
+    seq = SyntheticSequence(
+        scene_sdf=default_scene(),
+        poses=circle_trajectory(2, radius=6.0, revolutions=0.02,
+                                ease_in_frames=1),
+        dirs=lidar_directions(256, 16), max_range=60.0,
+        color_fn=procedural_color)
+    cfgs = []
+    for cls, track_on in ((TConfig, False), (TConfig, True),
+                          (JConfig, True)):
+        c = small_config(cls, track_on=track_on)
+        c.color_on, c.color_channel, c.iters = True, 3, 4
+        cfgs.append(c)
+    ts = TSystem(cfgs[0], device="cpu")
+    ts.set_gt_poses(seq.poses)
+    for fid in range(2):
+        ts.process_frame(fid, seq.frame(fid))
+    path = str(tmp_path / "pin_map.npz")
+    save_implicit_map(path, ts.state, ts.params, ts.config)
+
+    tl = TSystem(cfgs[1], device="cpu")
+    tl.load_map(path)
+    jl = JSystem(cfgs[2])
+    jl.load_map(path)
+    gidx = tl._loc_lset.gidx.numpy()
+    np.testing.assert_array_equal(gidx, np.asarray(jl._loc_lset.gidx))
+    live = int(tl._loc_lset.count)
+    whole = np.asarray(jl.params["color_features"])
+    np.testing.assert_array_equal(tl.state.color_features.numpy(), whole)
+    port = tl._loc_cfeats.numpy()
+    # the port: the map's colour features at the set's rows, as the
+    # geometric features both packages gather
+    np.testing.assert_array_equal(port, whole[gidx])
+    np.testing.assert_array_equal(tl._loc_feats.numpy(),
+                                  np.asarray(jl._loc_feats))
+    # the reference: map row i for local row i
+    ref = whole[: port.shape[0]]
+    same_row = gidx[:live] == np.arange(live)
+    assert live > 1000 and (~same_row).sum() > live // 2
+    moved = ~same_row & (np.abs(whole[gidx[:live]] - ref[:live]).max(1) > 0)
+    assert moved.any()
+    assert not np.array_equal(port[:live], ref[:live])
+    np.testing.assert_array_equal(port[:live][same_row], ref[:live][same_row])

@@ -3,8 +3,9 @@ tests/test_cli_e2e.py's dataset on disk (6 frames, 256 x 16 rays, PLY
 scans, KITTI poses) -> run_pin_slam(cpu_only=True, save_map=True,
 save_mesh=True) -> the same artifacts as the JAX package's CLI, ATE below
 its 0.3 m bound, poses that round-trip, offline remeshing with vis_pin_map,
-a saved map that the JAX package loads, and localization against that map
-through `load_model`.
+a saved map that the JAX package loads, localization against that map
+through `load_model`, and a run from a ROS1 bag of swept scans with deskew
+(`rosbag -i <dir> -d --deskew`).
 
 The YAML is test_cli_e2e.py's with the training cut for the CPU: batch 1024
 (4096), 10 iterations a frame and 20x on the first (12, 20x), a 4096-point
@@ -13,6 +14,7 @@ every training query on the CPU), source voxel 0.5 m (0.4) and mc_res_m
 0.5 m (0.3, a 30 cm final mesh)."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from pin_slam_tpu_torch.dataset.io import (
     write_kitti_format_poses,
     write_ply_points,
 )
+from pin_slam_tpu_torch.dataset.rosbag1 import write_bag1
 from pin_slam_tpu_torch.dataset.synthetic import (
     SyntheticSequence,
     circle_trajectory,
@@ -34,6 +37,7 @@ from pin_slam_tpu_torch.dataset.synthetic import (
 )
 
 ATE_BOUND_M = 0.3      # tests/test_cli_e2e.py's
+BAG_FRAMES = 5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -201,3 +205,69 @@ def test_the_card_is_the_default_and_the_viewer_raises(disk_dataset,
     with pytest.raises(NotImplementedError, match="viewer"):
         trun.main([str(cfg_path), "-c", "-v", "-o", str(tmp_path)])
     assert not list(tmp_path.iterdir())     # refused before any output
+
+
+@pytest.fixture(scope="module")
+def bag_run(disk_dataset, tmp_path_factory):
+    """The same cut YAML with `deskew: true` over BAG_FRAMES swept scans
+    (each ray fired from the pose of its instant) written as one ROS1 bag
+    of PointCloud2 messages with a per-point time field, run as
+    `python -m pin_slam_tpu_torch.run <yaml> rosbag -i <dir> -d --deskew
+    -s -m -c` runs it. Records each frame's tracker validity."""
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    _, cfg, _, _ = disk_dataset
+    root = tmp_path_factory.mktemp("bag_run")
+    seq = SyntheticSequence(
+        scene_sdf=default_scene(),
+        poses=circle_trajectory(BAG_FRAMES + 1, radius=6.0,
+                                revolutions=0.05, ease_in_frames=3),
+        dirs=lidar_directions(256, 16), max_range=60.0, sweep=True)
+    (root / "bag").mkdir()
+    write_bag1(str(root / "bag" / "walk.bag"),
+               [seq.frame_with_ts(i) for i in range(BAG_FRAMES)],
+               topic="/os_cloud_node/points")
+    cfg = dict(cfg, setting=dict(cfg["setting"], deskew=True,
+                                 output_root=str(root / "out")))
+    path = root / "bag.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    valid, orig = [], PinSLAMSystem.process_frame
+
+    def process_frame(system, fid, *a, **k):
+        out = orig(system, fid, *a, **k)
+        valid.append(fid == 0 or bool(system.last_tracking.valid))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PinSLAMSystem, "process_frame", process_frame)
+        metrics = trun.run_pin_slam(str(path), "rosbag",
+                                    input_path=str(root / "bag"),
+                                    data_loader_on=True, deskew=True,
+                                    cpu_only=True, save_map=True,
+                                    save_mesh=True)
+    # a deskewed scan is expressed in its mid-scan frame; the run starts
+    # at the identity, in the first scan's frame
+    gt = np.stack([seq._pose_at(i, 0.5) for i in range(BAG_FRAMES)])
+    gt = np.linalg.inv(gt[0]) @ gt
+    run_dir = next((root / "out").iterdir())
+    return run_dir, metrics, valid, gt
+
+
+def test_run_from_a_ros1_bag(bag_run):
+    """Every frame valid, the written odometry within the file's ATE bound
+    of the mid-scan truth (a bag carries no ground truth, so the run
+    itself computes no metrics), and the artifacts written."""
+    from pin_slam_tpu_torch.utils.eval_traj import absolute_error
+
+    run_dir, metrics, valid, gt = bag_run
+    assert metrics == {}
+    assert len(valid) == BAG_FRAMES and all(valid), valid
+    est = np.stack(read_kitti_format_poses(
+        str(run_dir / "odom_poses_kitti.txt")))
+    ate, _ = absolute_error(gt, est, align_on=False)
+    assert est.shape == (BAG_FRAMES, 4, 4) and ate < ATE_BOUND_M, ate
+    assert Path(run_dir).name.startswith("cli_e2e_rosbag_")
+    for f in ("odom_poses_tum.txt", "time_table.npy", "model/pin_map.npz",
+              "map/neural_points.ply", "meta/config_all.yaml",
+              "mesh/mesh_30cm.ply"):
+        assert (run_dir / f).exists(), f
