@@ -203,12 +203,43 @@
    deskew ms a frame (timed apart from process_frame), the bag's size and
    the peak device memory.
 
+14. The hash-table probes (`[probes]`, after `[mesh]`): the bench.py
+   configuration with weighted_first=False and the floor kept (min_z -7
+   m, as `[loop]`; a 2^17-row join set, which holds the run's map), over
+   the same 20 frames three times, under probe_mode join, cells and brick
+   (the brick cache: (2^19 + 1) x 64 x 3 int32 at the 2^23 table). It
+   fails unless every frame is tracker-valid in every run, the drift gate
+   holds, the join run launched the k-NN kernel and the cell and brick
+   runs did not (they build no local set), the brick run's map meshed at
+   0.3 m through the brick probe launched the fused decode once per grid
+   batch and lies a median <= MAX_MESH_MEDIAN_M from the scene, and on
+   that map the brick and cell probes agree within the JAX package's
+   bounds (tests/test_ops.py: nn_count differs on < 15 % of the queries,
+   the neighbour sets agree on > 90 %) at the tracker's source cloud and
+   at a 16384-sample training batch. Prints per mode ms/frame (median of
+   the steady frames), GN iterations a frame, ATE, the launches, peak
+   memory and the brick table's bytes, and the device ms of the three
+   probes (cells, brick, join: the set build plus the k-NN call) at the
+   tracker's cloud, the training batch and the mesher's 524288-point
+   batch, with the share of queries whose neighbours differ between brick
+   and cells.
+15. The training options (`[options]`): the same configuration on the
+   join probe with incidence labels (mode "label") and the consistency
+   loss. Fails unless every frame is valid, the drift gate holds, the
+   k-NN kernel launched, some of the last frame's training points are
+   corrected by their incidence and the consistency term is finite.
+   Prints ms/frame, ATE, z at the last frame, k-NN launches a frame, the
+   last training cloud's incidence cosines (the share below 1, the median
+   and the share at the floor) and the consistency term at the last
+   training iteration.
+
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
 CUDA device is present or any phase fails. `--only color,semantic` (any of
-slice, mesh, loop, ba, dynamic, color, semantic, run, localize, bag;
-localize runs run first) runs the build, the kernel checks and the phases named, and
-prints neither line: a quicker check while working.
+slice, mesh, probes, options, loop, ba, dynamic, color, semantic, run,
+localize, bag; localize runs run first) runs the build, the kernel checks
+and the phases named, and prints neither line: a quicker check while
+working.
 """
 
 import argparse
@@ -2431,6 +2462,272 @@ def phase_bag(grids, seq, root):
         wall_s=wall, peak_gib=peak)
 
 
+def probes_config(Config, mode, **options):
+    """bench_config with weighted_first=False and the floor kept (min_z -7
+    m, as `[loop]`), under `probe_mode` `mode`, with `options` (training
+    flags) set. The join probe's local set is sized to the run's map
+    (2^17 rows, as `[color]`): bench.py's 2^16 holds its cropped scene."""
+    cfg = bench_config(Config, weighted_first=False)
+    cfg.min_z = -7.0
+    cfg.local_set_cap = 1 << 17
+    cfg.probe_mode = mode
+    for k, v in options.items():
+        setattr(cfg, k, v)
+    return cfg.finalize()
+
+
+def run_probe_mode(mode, frames, poses, dev, **options):
+    """One 20-frame run of the bench configuration under `mode`. Returns
+    (system, figures)."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    tag = f"probes:{mode}" if not options else "options"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    system = PinSLAMSystem(probes_config(Config, mode, **options),
+                           device=dev)
+    system.set_gt_poses(poses)
+    iters, frame_s = [], []
+    kj.LAUNCHES = 0
+    fd.LAUNCHES = 0
+    est, steady_s = run_frames(
+        system, frames, poses, tag, frame_s=frame_s,
+        on_frame=lambda f: iters.append(system.last_track_iters))
+    d = est[:, :3, 3] - poses[: len(est), :3, 3]
+    err = np.linalg.norm(d, axis=1)
+    check_drift(err)
+    s = system.state
+    res = dict(
+        mode=mode, ms=float(np.median(frame_s[WARMUP:]) * 1e3),
+        steady_ms=steady_s * 1e3, gn_iters=float(np.mean(iters[1:])),
+        ate_m=float(np.sqrt(np.mean(err ** 2))), max_err_m=float(err.max()),
+        z_last_m=float(d[-1, 2]), knn=kj.LAUNCHES, fd=fd.LAUNCHES,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        btable_bytes=s.btable.numel() * s.btable.element_size(),
+        map_points=int(s.count))
+    log(f"[{tag}] {mode}: {res['ms']:.1f} ms/frame (median of the steady "
+        f"frames; {steady_s * 1e3:.1f} wall), GN iterations "
+        f"{res['gn_iters']:.1f} a frame, ATE {res['ate_m'] * 100:.2f} cm "
+        f"(max {res['max_err_m'] * 100:.2f}, z at frame "
+        f"{len(frames) - 1} {res['z_last_m'] * 100:+.2f} cm), knn_join "
+        f"launches {res['knn']} ({res['knn'] / len(frames):.2f} a frame), "
+        f"fused_decode launches {res['fd']}, map {res['map_points']} "
+        f"points, brick table {res['btable_bytes']} B, peak device memory "
+        f"{res['peak_gib']:.2f} GiB")
+    return system, res
+
+
+def time_probes(system, frames, est, dev):
+    """On `system`'s final map (kept with its brick cache): the cell probe,
+    the brick probe and the join probe (the set build, then the k-NN
+    kernel) at the tracker's source cloud (the last frame's, on its pose;
+    travel window and sensor radius, k = nn_k, or 12 candidates on the
+    join), one training batch (16384 pool samples; travel window, k =
+    nn_k, or nn_k + 2 candidates) and the mesher's batch (524288 points of
+    its first grid batch, no filter, k = 6). Prints their device ms and
+    the share of queries whose neighbours differ between brick and cells;
+    fails past the JAX package's bounds (tests/test_ops.py: nn_count
+    differs on < 15 %, the sets agree on > 90 %) at the tracker's and the
+    training shapes. Returns the table."""
+    import torch
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.ops.transforms import transform_points
+    from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+
+    c, qp, s = system.config, system.qp, system.state
+    fid = len(frames) - 1
+    pre = system._run_preprocess(frames[fid])
+    src = transform_points(pre[3][: int(pre[5])],
+                           system._tensor(est[fid]))
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randint(0, int(system.pool.count), (c.bs,), generator=g,
+                         device=dev)
+    batch = system.pool.coord[rows]
+    cnt = int(s.count)
+    pos = s.positions[:cnt]
+    mesher = Mesher(qp, MeshConfig(mc_res_m=c.mc_res_m,
+                                   infer_bs=c.infer_bs_final))
+    lo, hi = mesher.split_chunks(pos.amin(0).cpu().numpy(),
+                                 pos.amax(0).cpu().numpy(),
+                                 c.mc_res_m * 200)[0]
+    origin, dims = mesher.aabb_grid(lo, hi)
+    grid = mesher.grid_coords(origin, dims, 0,
+                              min(c.infer_bs_final, int(np.prod(dims))), dev)
+    lf = system._lf(fid, sensor_pos=est[fid][:3, 3])
+    filt = dict(time_filter=True, travel_dist=lf.travel_dist,
+                cur_ts=lf.cur_ts, local_window_dist=lf.local_window_dist,
+                reboot_ts=lf.reboot_ts, use_mid_ts=qp.use_mid_ts)
+    travel = system._tensor(system.travel_dist[: system.max_frames])
+    live = torch.arange(s.capacity, device=dev) < cnt
+
+    def whole_set():
+        return kj.build_local_set(s.positions, live, c.voxel_size_m,
+                                  max(1, -(-cnt // kj.TL)) * kj.TL)
+
+    shapes = (
+        ("tracker", src, dict(filt, radius_filter=True,
+                              sensor_pos=lf.sensor_pos,
+                              local_map_radius=lf.local_map_radius), 12,
+         lambda: system.build_lset_track(travel, fid, lf.sensor_pos,
+                                         system.reboot_ts)[0]),
+        ("train", batch, filt, qp.nn_k + 2,
+         lambda: system.build_lset_train(travel, fid, system.reboot_ts)),
+        ("mesher", grid, {}, qp.nn_k, whole_set))
+    table = []
+    for name, q, kw, k_join, build in shapes:
+        q = q.contiguous()
+
+        def probe(mode):
+            return npm.query_neighbors(
+                s, q, offsets=qp.offsets_np, resolution=qp.resolution,
+                nn_k=qp.nn_k, max_dist2=qp.max_dist2, probe_mode=mode, **kw)
+
+        with torch.no_grad():
+            cells, brick = probe("cells"), probe("brick")
+            cells_ms = cuda_time_ms(lambda: probe("cells"), 5)
+            brick_ms = cuda_time_ms(lambda: probe("brick"), 5)
+            lset = build()
+            build_ms = cuda_time_ms(build, 5)
+            knn_ms = cuda_time_ms(lambda: npm.query_neighbors_join(
+                q, lset, nn_k=k_join, max_dist2=qp.join_max_dist2,
+                resolution=qp.resolution), 5)
+        count_differs = float((cells.nn_count != brick.nn_count)
+                              .float().mean())
+        sets = [torch.sort(torch.where(r.valid, r.idx,
+                                       torch.full_like(r.idx, -1)), 1)[0]
+                for r in (cells, brick)]
+        agree = float((sets[0] == sets[1]).all(1).float().mean())
+        with_nn = float((brick.nn_count > 0).float().mean())
+        row = dict(shape=name, n=int(q.shape[0]), k=qp.nn_k, k_join=k_join,
+                   cells_ms=cells_ms, brick_ms=brick_ms,
+                   join_build_ms=build_ms, join_knn_ms=knn_ms,
+                   join_ms=build_ms + knn_ms, nn_count_differs=count_differs,
+                   sets_agree=agree)
+        table.append(row)
+        log(f"[probes] {name}: N={row['n']} (k={qp.nn_k}; join k={k_join}; "
+            f"{with_nn:.3f} with neighbours) | cells {cells_ms:.3f} ms, "
+            f"brick {brick_ms:.3f} ms, join {row['join_ms']:.3f} ms (set "
+            f"build {build_ms:.3f} + k-NN call {knn_ms:.3f}: query sort, "
+            f"tile table and kernel) | brick vs cells: "
+            f"nn_count differs on {count_differs:.4f}, sets agree on "
+            f"{agree:.4f}")
+        if name != "mesher" and not (count_differs < 0.15 and agree > 0.9):
+            raise AssertionError(
+                f"{name}: the brick and cell probes disagree past the JAX "
+                f"package's bounds (nn_count {count_differs}, sets {agree})")
+    return table
+
+
+def phase_probes(frames, poses, scene_sdf, dev):
+    """`[probes]`: the bench configuration (weighted_first=False, the floor
+    kept) over the same frames under the join, cell and brick probes; the
+    brick run's map meshed at 0.3 m through the fused decode (its
+    lset-less queries through the brick probe); the three probes timed on
+    that map. Returns (knn launches, fused-decode launches, figures)."""
+    import torch
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+    from pin_slam_tpu_torch.utils.eval_mesh import sample_mesh_points
+
+    runs, knn, fdl = {}, 0, 0
+    for mode in ("join", "cells", "brick"):
+        system, res = run_probe_mode(mode, frames, poses, dev)
+        runs[mode] = res
+        knn += res["knn"]
+        fdl += res["fd"]
+        if mode != "brick":
+            del system
+    if runs["cells"]["knn"] or runs["brick"]["knn"]:
+        raise AssertionError("a hash-probe run launched the k-NN kernel")
+    if runs["join"]["knn"] <= 0:
+        raise AssertionError("the join run never launched the k-NN kernel")
+
+    c = system.config
+    mesher = Mesher(system.qp, MeshConfig(
+        mc_res_m=c.mc_res_m, pad_voxel=c.pad_voxel,
+        skip_top_voxel=c.skip_top_voxel, mc_mask_on=c.mc_mask_on,
+        mesh_min_nn=c.mesh_min_nn,
+        min_cluster_vertices=c.min_cluster_vertices,
+        infer_bs=c.infer_bs_final, chunk_m=c.mc_res_m * 200))
+    fd.LAUNCHES = 0
+    kj.LAUNCHES = 0
+    t0 = time.time()
+    verts, faces = mesher.recon_map_mesh(
+        system.state, system.params["geo_features"],
+        system.params["geo_mlp"], filter_isolated=False)
+    torch.cuda.synchronize()
+    mesh_s = time.time() - t0
+    mesh_fd = fd.LAUNCHES
+    fdl += mesh_fd
+    if kj.LAUNCHES or mesh_fd <= 0 or mesh_fd != mesher.n_batches \
+            or mesher.decode_route != "fused_decode":
+        raise AssertionError(
+            f"the brick map's mesh ran {mesher.n_batches} batches on the "
+            f"{mesher.decode_route} route with {mesh_fd} fused_decode and "
+            f"{kj.LAUNCHES} knn_join launches")
+    if verts.shape[0] == 0:
+        raise AssertionError("the brick map's mesh is empty")
+    dist = np.abs(scene_sdf(sample_mesh_points(verts, faces, MESH_SAMPLES,
+                                               seed=0)))
+    median = float(np.median(dist))
+    log(f"[probes] mesh of the brick run's map at {c.mc_res_m} m: "
+        f"{mesher.n_batches} grid batches = {mesh_fd} fused_decode "
+        f"launches, {verts.shape[0]} vertices in {mesh_s:.2f} s (query "
+        f"{mesher.query_seconds / mesher.n_batches * 1e3:.1f} ms/batch); "
+        f"median distance to the scene {median:.4f} m (bound "
+        f"{MAX_MESH_MEDIAN_M} m)")
+    if median > MAX_MESH_MEDIAN_M:
+        raise AssertionError(f"the brick map's mesh lies a median {median} "
+                             "m from the scene")
+    est = system.pgo_poses[: len(frames)]
+    table = time_probes(system, frames, est, dev)
+    del system
+    torch.cuda.empty_cache()
+    return knn, fdl, dict(runs=runs, probes=table, mesh_median_m=median)
+
+
+def phase_options(frames, poses, dev):
+    """`[options]`: the bench configuration of `[probes]` on the join probe
+    with incidence labels (mode "label") and the consistency loss. Returns
+    (knn launches, fused-decode launches, figures)."""
+    import torch
+
+    system, res = run_probe_mode("join", frames, poses, dev,
+                                 incidence_label_on=True,
+                                 incidence_mode="label",
+                                 consistency_loss_on=True)
+    if res["knn"] <= 0:
+        raise AssertionError("[options] never launched the k-NN kernel")
+    cos, mask = system.last_incidence
+    cos = cos[mask]
+    c = system.config
+    below = float((cos < 1.0).float().mean())
+    at_floor = float((cos <= c.incidence_cos_floor).float().mean())
+    median = float(cos.median())
+    cons = system.last_train_terms["consistency_loss"]
+    res.update(cos_below_1=below, cos_median=median, cos_at_floor=at_floor,
+               consistency_last=float(cons[-1]))
+    log(f"[options] frame {len(frames) - 1}'s training cloud: "
+        f"{int(mask.sum())} points, incidence cos < 1 on {below:.4f}, "
+        f"median {median:.4f}, at the floor {c.incidence_cos_floor} on "
+        f"{at_floor:.4f}; consistency term at the last iteration "
+        f"{float(cons[-1]):.5f} (first {float(cons[0]):.5f}, weight "
+        f"{c.weight_c}, {c.consistency_count} samples)")
+    if not (0.0 < below and np.isfinite(median)
+            and bool(torch.isfinite(cons).all())):
+        raise AssertionError("[options]: no incidence correction or a "
+                             "non-finite consistency term")
+    del system
+    torch.cuda.empty_cache()
+    return res["knn"], res["fd"], res
+
+
 def make_frames(pool, fn, args):
     """fn over args in the pool's spawned worker processes (frame i of a
     sequence)."""
@@ -2446,9 +2743,10 @@ def make_frames(pool, fn, args):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (slice, mesh, loop, ba, "
-                    "dynamic, color, semantic, run, localize, bag) after the "
-                    "kernel checks; prints no result")
+                    help="comma-separated phases (slice, mesh, probes, "
+                    "options, loop, ba, dynamic, color, semantic, run, "
+                    "localize, bag) after the kernel checks; prints no "
+                    "result")
     only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
     if not torch.cuda.is_available():
@@ -2503,6 +2801,13 @@ def run_phases(only, dev, pool):
         out["slice"], _ = phase_slice(frames, seq.poses, dev)
     if want("mesh"):
         out["mesh"] = phase_mesh(frames, seq.poses, seq.scene_sdf, dev)
+    if want("probes"):
+        knn_pr, fd_pr, _ = phase_probes(frames, seq.poses, seq.scene_sdf,
+                                        dev)
+        out["probes"] = (knn_pr, fd_pr)
+    if want("options"):
+        knn_op, fd_op, _ = phase_options(frames, seq.poses, dev)
+        out["options"] = (knn_op, fd_op)
     del frames
     torch.cuda.empty_cache()
     if want("loop"):
@@ -2597,6 +2902,8 @@ def run_phases(only, dev, pool):
         "launches_run_path": out["run"][0],
         "launches_localize_path": out["localize"][0],
         "launches_bag_path": out["bag"][0],
+        "launches_probes_path": out["probes"][0],
+        "launches_options_path": out["options"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -2614,6 +2921,8 @@ def run_phases(only, dev, pool):
         "launches_run_path": out["run"][1],
         "launches_localize_path": out["localize"][1],
         "launches_bag_path": out["bag"][1],
+        "launches_probes_path": out["probes"][1],
+        "launches_options_path": out["options"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

@@ -8,9 +8,9 @@ point (`run.py`: paths, frame range, deskew, saving, localization) read:
 the same field names, defaults and YAML schema, so every config file of
 the repo loads into both packages and gives the same values for the fields
 kept here. Keys of features the port has not ported yet (the viewer, ROS)
-are ignored; the flags of features whose results it would change
-(consistency loss, incidence labels, data parallelism, the viewer) are
-loaded so that `PinSLAMSystem` or `run.py` refuses them.
+are ignored; the flags of features whose results it would change (data
+parallelism, the viewer) are loaded so that `PinSLAMSystem` or `run.py`
+refuses them.
 The `tpu` YAML section keeps its name; its static capacities size the
 port's fixed-capacity tensors the same way.
 """
@@ -131,7 +131,15 @@ class Config:
     free_sample_end_dist_m: float = 1.0
     free_front_n: int = 2
     free_behind_n: int = 1
-    incidence_label_on: bool = False   # not ported: refused
+    # incidence-weighted projective labels (ops/range_image.py): scale the
+    # free-space samples' labels ("label") or loss weights ("weight") by
+    # the geometric |cos| of their ray's incidence
+    incidence_label_on: bool = False
+    incidence_cos_floor: float = 0.1
+    incidence_mode: str = "label"
+    incidence_bins_az: int = 512
+    incidence_bins_el: int = 64
+    incidence_range_gate_m: float = 0.5
 
     # ------------------------------------------------------------ replay pool
     window_radius: float = 50.0
@@ -151,12 +159,21 @@ class Config:
     color_mlp_hidden_dim: int = 64
     decoder_freezed: bool = False
     freeze_after_frame: int = 40
+
+    # positional encoding of the offsets (models/pos_encoding.py; band 0:
+    # the raw offsets)
+    use_gaussian_pe: bool = False
+    pos_encoding_freq: int = 200
+    pos_encoding_band: int = 0
     pos_input_dim: int = 3
+    pos_encoding_base: int = 2
 
     # --------------------------------------------------------------------- loss
     main_loss_type: str = "bce"
     sigma_sigmoid_m: float = 0.1
     logistic_gaussian_ratio: float = 0.55
+    # scale the projective SDF label by |cos(learned gradient, ray)|
+    proj_correction_on: bool = False
     loss_weight_on: bool = False
     behind_dropoff_on: bool = False
     dist_weight_on: bool = True
@@ -168,7 +185,12 @@ class Config:
     weight_e: float = 0.5
     weight_s: float = 1.0
     weight_i: float = 1.0
-    consistency_loss_on: bool = False  # not ported: refused
+    # gradient consistency between a batch's first samples and points
+    # shifted by up to consistency_range (count = bs / 4, see finalize)
+    consistency_loss_on: bool = False
+    weight_c: float = 0.5
+    consistency_count: int = 1000
+    consistency_range: float = 0.05
 
     # ---------------------------------------------------------------- optimizer
     mapping_freq_frame: int = 1
@@ -283,9 +305,10 @@ class Config:
     source_point_cap: int = 1 << 13
     max_frames: int = 1 << 14
     # kNN probe layout: 'join' (the tiled spatial-join k-NN over a per-frame
-    # local set; 'auto' resolves to it) drives the track+map loop, 'cells'
-    # (the hash-table probe of the 33-cell ball) serves queries without a
-    # local set, such as the mesher's; 'brick' raises NotImplementedError.
+    # local set; 'auto' resolves to it), 'cells' (the hash-table probe of
+    # the 33-cell ball over the whole map) or 'brick' (the brick-cache
+    # probe over the whole map). Queries without a local set (the
+    # mesher's, BA's, the dynamic filter's) take 'cells' under 'join'.
     probe_mode: str = "auto"
     # capacity of the per-frame compacted local point set (join probe)
     local_set_cap: int = 1 << 17
@@ -298,6 +321,7 @@ class Config:
         """Compute derived parameters (reference: utils/config.py:556-562)."""
         self.run_name = self.name
         self.infer_bs_final = self.bs * 32
+        self.consistency_count = int(self.bs / 4)
         self.window_radius = max(self.max_range, 6.0)
         self.local_map_radius = self.max_range + 2.0
         self.buffer_size = _next_pow2(int(self.buffer_size))
@@ -399,6 +423,8 @@ class Config:
             self.free_behind_n = sa.get("free_behind_sample_n", self.free_behind_n)
             self.incidence_label_on = sa.get(
                 "incidence_label_on", self.incidence_label_on)
+            self.incidence_cos_floor = sa.get(
+                "incidence_cos_floor", self.incidence_cos_floor)
 
         npt = args.get("neuralpoints", {})
         if npt:

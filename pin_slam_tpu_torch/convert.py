@@ -9,8 +9,10 @@ objects with `np.asarray`), so this module needs nothing of JAX itself:
     pool_np = {f: np.asarray(getattr(pool, f)) for f in POOL_FIELDS}
 
 and, where the JAX objects carry them, "color_mlp" / "sem_mlp" in params_np,
-"color_features" in state_np (COLOR_FIELDS) and "sem_label" /
-"color_label" in pool_np (POOL_LABEL_FIELDS).
+"color_features" and the brick cache "btable" in state_np (COLOR_FIELDS,
+BRICK_FIELDS) and "sem_label" / "color_label" in pool_np
+(POOL_LABEL_FIELDS). A JAX `GaussianFourierFeatures` crosses with
+`gaussian_pe_from_jax`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ STATE_FIELDS = ("positions", "orientations", "geo_features", "ts_create",
 POOL_FIELDS = ("coord", "sdf_label", "weight", "ts", "count", "new_idx",
                "new_count", "write_pos")
 COLOR_FIELDS = ("color_features",)
+BRICK_FIELDS = ("btable",)
 POOL_LABEL_FIELDS = ("sem_label", "color_label")
 MLP_NAMES = ("geo_mlp", "color_mlp", "sem_mlp")
 
@@ -44,7 +47,9 @@ def mlp_from_numpy(mlp_np, device=None):
 
 def state_from_numpy(state_np, device=None) -> npm.MapState:
     """A MapState from numpy arrays of the STATE_FIELDS (and the
-    COLOR_FIELDS, when given and not None) on `device` (None: the card)."""
+    COLOR_FIELDS and BRICK_FIELDS, when given and not None) on `device`
+    (None: the card). Without a "btable" the state keeps the dump brick
+    alone; `neural_points.rebuild_probe_cache` cannot rebuild it then."""
     device = resolve_device(device)
 
     def t(name, dtype):
@@ -62,6 +67,8 @@ def state_from_numpy(state_np, device=None) -> npm.MapState:
         table=t("table", torch.int64),
         color_features=None if state_np.get("color_features") is None
         else t("color_features", torch.float32),
+        btable=npm._empty_btable(0, device)
+        if state_np.get("btable") is None else t("btable", torch.int32),
     )
 
 
@@ -100,6 +107,23 @@ def lset_from_numpy(lset_np: dict, device=None):
                     cert=t("cert", torch.float32),
                     ts_upd=t("ts_upd", torch.int32),
                     quat=t("quat", torch.float32))
+
+
+def gaussian_pe_from_jax(B_np, freq: float = 200.0, device=None):
+    """A `models.pos_encoding.GaussianFourierFeatures` with the JAX
+    encoder's random matrix `B` [d, bands] (None for zero bands) on
+    `device` (None: the card)."""
+    from pin_slam_tpu_torch.models.pos_encoding import (
+        GaussianFourierFeatures)
+
+    device = resolve_device(device)
+    if B_np is None:
+        return GaussianFourierFeatures(None, freq=freq, num_bands=0,
+                                       device=device)
+    B = np.asarray(B_np, np.float32)
+    return GaussianFourierFeatures(
+        None, freq=freq, num_bands=B.shape[1], dimensionality=B.shape[0],
+        B=torch.as_tensor(B, device=device), device=device)
 
 
 def from_jax(params_np: Optional[dict], state_np: Optional[dict],

@@ -1,15 +1,16 @@
 """Fixed-capacity neural point map. Port of
-`pin_slam_tpu/models/neural_points.py`: the join-mode main path with its
-colour features, the
-cell-table probe that queries without a local set (the mesher's) uses, and
-the map maintenance of loop closure (elastic deformation, capacity growth).
+`pin_slam_tpu/models/neural_points.py`: insertion with its colour features,
+the three neighbour probes (the join probe over a local set, the cell-table
+probe and the brick-cache probe over the whole map), and the map
+maintenance of loop closure (elastic deformation, capacity growth).
 
 Point attribute tensors are preallocated at `capacity` + 1 rows; the last
 row is a DUMP row for masked writes and invalid gathers. A power-of-two
-voxel hash table stores the latest point index per cell. The layout is the
-JAX package's, so indices compare 1:1. The brick probe cache of the JAX
-package's hash probes is not kept: neither the join probe nor the cell
-probe reads it, and the brick probe is not ported.
+voxel hash table stores the latest point index per cell. The brick cache
+(`MapState.btable`) holds the same cells grouped into 4x4x4-cell bricks, so
+a probe reads 8 brick rows instead of 33 cells; it is kept only where the
+brick probe reads it. The layout is the JAX package's, so indices compare
+1:1.
 
 Tensors are updated in place where the JAX code builds a new array: the
 map is the single owner of its storage.
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from pin_slam_tpu_torch.ops import hash3d
-from pin_slam_tpu_torch.ops.scatter import index_add_exact, scatter_set_last
+from pin_slam_tpu_torch.ops.knn_join import _fma
+from pin_slam_tpu_torch.ops.scatter import index_add_exact, set_last_
 from pin_slam_tpu_torch.ops.transforms import (
     quat_multiply,
     quat_rotate,
@@ -54,6 +56,11 @@ class MapState:
     count: torch.Tensor           # [] i64 number of valid points
     table: torch.Tensor           # [B+1] i64 hash table (-1 empty)
     color_features: Optional[torch.Tensor] = None  # [C+1, F] or None
+    # brick cache: int32 [Nb+1, 64, 3] of (idx, ts_create, packed 3 x u8
+    # cell-local position) per cell slot of 4x4x4-cell bricks hashed by
+    # brick coordinate, row Nb the dump brick; [1, 64, 3] (the dump brick
+    # alone) or None where no brick probe reads it
+    btable: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -78,7 +85,11 @@ class QueryNeighbors:
 
 
 def init_map_state(capacity: int, table_size: int, feature_dim: int,
-                   color_on: bool = False, device=None) -> MapState:
+                   color_on: bool = False, device=None,
+                   with_btable: bool = True) -> MapState:
+    """`with_btable=False` allocates the dump brick alone: the join and
+    cell probes never read the brick cache, which takes ~400 MB at a 2^23
+    table. The brick probe requires True."""
     c1 = capacity + 1
     orient = torch.zeros((c1, 4), dtype=torch.float32, device=device)
     orient[:, 0] = 1.0
@@ -95,7 +106,96 @@ def init_map_state(capacity: int, table_size: int, feature_dim: int,
                          device=device),
         color_features=torch.zeros((c1, feature_dim), dtype=torch.float32,
                                    device=device) if color_on else None,
+        btable=_empty_btable(_brick_count(table_size) if with_btable else 0,
+                             device),
     )
+
+
+# brick layout
+BRICK_EDGE = 4                      # cells per brick edge
+CELLS_PER_BRICK = BRICK_EDGE ** 3
+_BRICK_FIELDS = 3                   # idx, ts_create, packed local position
+# brick-corner offsets covering any 5-cell span (the 33-cell ball)
+_BRICK_NEI = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                      -1).reshape(8, 3)
+# cell offset of each slot within its brick; slot = x * 16 + y * 4 + z
+_SLOT_XYZ = np.stack(np.meshgrid(np.arange(4), np.arange(4), np.arange(4),
+                                 indexing="ij"), -1).reshape(64, 3)
+# queries per chunk of the brick probe: a query gathers 8 brick rows
+# (6 KiB) and ranks 512 candidates
+BRICK_QUERY_CHUNK = 1 << 16
+
+
+def _brick_count(table_size: int) -> int:
+    """Brick rows for a per-cell table size (4x the cell capacity)."""
+    return max(table_size >> 4, 1 << 10)
+
+
+def _empty_btable(n_bricks: int, device=None) -> torch.Tensor:
+    return torch.full((n_bricks + 1, CELLS_PER_BRICK, _BRICK_FIELDS), -1,
+                      dtype=torch.int32, device=device)
+
+
+def has_btable(state: MapState) -> bool:
+    """True when the state keeps a brick cache beyond the dump brick."""
+    return state.btable is not None and state.btable.shape[0] > 1
+
+
+def _pack_local(pos: torch.Tensor, grid: torch.Tensor, resolution: float,
+                contract: bool) -> torch.Tensor:
+    """The cell-local position quantized to 3 x u8 in one int32 (~res/256:
+    it only ranks candidates; consumers recompute exact distances from
+    `positions`). The fraction pos / res - grid rounds as in the JAX
+    package's jitted code, where XLA multiplies by 1 / res: contracted into
+    fma(pos, 1 / res, -grid) in the insert (`contract`), rounded after the
+    product in the rehash."""
+    rec = torch.full((), float(np.float32(1.0) / np.float32(resolution)),
+                     device=pos.device)
+    gf = grid.to(torch.float32)
+    frac = _fma(pos, rec, -gf) if contract else pos * rec - gf
+    q = torch.clamp((frac * 256.0).to(torch.int32), 0, 255)
+    return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+
+
+def _brick_write(btable: torch.Tensor, grid: torch.Tensor, idx: torch.Tensor,
+                 ts: torch.Tensor, pos: torch.Tensor, resolution: float,
+                 write_mask: torch.Tensor, contract: bool = True
+                 ) -> torch.Tensor:
+    """Scatter (idx, ts, packed pos) records into brick slots, in place;
+    masked rows land in the dump brick, which no query reads. Records that
+    alias one slot (two bricks with one brick hash) resolve as XLA's CPU
+    scatter does: the last record in row order wins. `contract`: see
+    `_pack_local`."""
+    n_bricks = btable.shape[0] - 1
+    hb = hash3d.hash_grid(grid >> 2, n_bricks)
+    slot = ((grid[..., 0] & 3) * 16 + (grid[..., 1] & 3) * 4
+            + (grid[..., 2] & 3))
+    flat_idx = torch.where(write_mask, hb * CELLS_PER_BRICK + slot,
+                           torch.full_like(hb, n_bricks * CELLS_PER_BRICK))
+    rec = torch.stack([idx.to(torch.int32), ts.to(torch.int32),
+                       _pack_local(pos, grid, resolution, contract)], dim=-1)
+    set_last_(btable.view(-1, _BRICK_FIELDS), flat_idx, rec)
+    return btable
+
+
+def rebuild_probe_cache(state: MapState, resolution: float) -> MapState:
+    """Recompute the brick cache from (table, positions, ts_create), after
+    any operation that moves points or rewrites the table wholesale
+    (deform, rehash, prune): only the points the cell table points at are
+    written, so the bricks agree with `table`. A no-op without a cache."""
+    if not has_btable(state):
+        return state
+    C = state.capacity
+    rows = torch.arange(C + 1, device=state.positions.device)
+    alive = rows < state.count
+    grid = hash3d.grid_coords(state.positions, resolution)
+    h = hash3d.hash_grid(grid, state.table_size)
+    is_winner = alive & (state.table[h] == rows)
+    btable = _empty_btable(state.btable.shape[0] - 1,
+                           state.positions.device)
+    return state.replace(btable=_brick_write(
+        btable, grid, rows, state.ts_create, state.positions, resolution,
+        is_winner, contract=False))
 
 
 def _travel_window_ts_lo(travel_dist: torch.Tensor, cur_ts,
@@ -121,10 +221,12 @@ def insert_points(
     use_reobs_rule: bool = True,
     force_all_new=False,    # bool or scalar bool tensor
     insert_cap: int = 1 << 16,
+    maintain_btable: bool = True,  # False where no brick probe reads it
 ):
     """Voxel-downsample candidates, compact the voxel winners to a small
     fixed buffer, probe the hash table on them, and append the new points
-    at consecutive slots. Returns (state, new_point_ratio)."""
+    at consecutive slots (and their records to the brick cache, where the
+    state keeps one). Returns (state, new_point_ratio)."""
     C = state.capacity
     B = state.table_size
     M = points.shape[0]
@@ -169,6 +271,7 @@ def insert_points(
     si = torch.where(svalid, sel, torch.zeros_like(sel))
 
     npts = cpts[si]
+    ngrid = grid[si]
     nh = h[si]
     j = torch.arange(icap, device=dev)
     n_avail = C - state.count
@@ -209,6 +312,8 @@ def insert_points(
     h_eff = torch.where(ok, nh, torch.full_like(nh, B))
     state.table[h_eff] = torch.where(ok, dest, torch.full_like(dest, -1))
     state.table[B] = -1
+    if maintain_btable and has_btable(state):
+        _brick_write(state.btable, ngrid, dest, ts_new, npts, resolution, ok)
     state.count = state.count + accepted
     return state, new_ratio
 
@@ -233,22 +338,148 @@ def query_neighbors(
     probe_mode: str = "cells",
 ) -> QueryNeighbors:
     """k nearest neural points of each query through the voxel hash table.
-    "cells" gathers the table at every cell of the neighborhood ball; the
-    brick-cache probe of the JAX package belongs to part B of this module
-    and is not ported yet."""
-    if probe_mode == "brick":
-        raise NotImplementedError(
-            "probe_mode='brick': the brick-cache probe is part B of "
-            "models/neural_points.py and is not ported yet")
-    if probe_mode != "cells":
+    "cells" gathers the table at every cell of the neighborhood ball;
+    "brick" gathers the 8 bricks of the brick cache that cover the ball
+    (which the state must keep, see `init_map_state`), in chunks of
+    BRICK_QUERY_CHUNK queries."""
+    kw = dict(offsets=offsets, resolution=resolution, nn_k=nn_k,
+              max_dist2=max_dist2, time_filter=time_filter,
+              travel_dist=travel_dist, cur_ts=cur_ts,
+              local_window_dist=local_window_dist,
+              radius_filter=radius_filter, sensor_pos=sensor_pos,
+              local_map_radius=local_map_radius, reboot_ts=reboot_ts,
+              use_mid_ts=use_mid_ts)
+    if probe_mode == "cells":
+        return _query_neighbors_cells(state, qpts, **kw)
+    if probe_mode != "brick":
         raise ValueError(f"query_neighbors: unknown probe_mode {probe_mode!r}")
-    return _query_neighbors_cells(
-        state, qpts, offsets=offsets, resolution=resolution, nn_k=nn_k,
-        max_dist2=max_dist2, time_filter=time_filter,
-        travel_dist=travel_dist, cur_ts=cur_ts,
-        local_window_dist=local_window_dist, radius_filter=radius_filter,
-        sensor_pos=sensor_pos, local_map_radius=local_map_radius,
-        reboot_ts=reboot_ts, use_mid_ts=use_mid_ts)
+    if not has_btable(state):
+        raise ValueError("query_neighbors: probe_mode='brick' needs a map "
+                         "state with a brick cache (with_btable=True)")
+    n = qpts.shape[0]
+    if n <= BRICK_QUERY_CHUNK:
+        return _query_neighbors_brick(state, qpts, **kw)
+    parts = [_query_neighbors_brick(state, qpts[s:s + BRICK_QUERY_CHUNK],
+                                    **kw)
+             for s in range(0, n, BRICK_QUERY_CHUNK)]
+    return QueryNeighbors(*(torch.cat([getattr(p, f) for p in parts])
+                            for f in ("idx", "dist2", "valid", "nn_count")))
+
+
+def _ball_columns(offsets: np.ndarray):
+    """The ball's cells among the 512 slots of the 8 bricks that cover it:
+    (per-offset brick corner j [K, 3] in {0, 1}, the offsets [K, 3], and
+    the ball's squared radius and radius in cells), for the offsets of the
+    ball {o : |o|^2 <= max |o|^2} that the 8 bricks reach. The ball is the
+    cell probe's search: `offsets` is a full ball of integer radii."""
+    offs = np.asarray(offsets).astype(np.int64)
+    ball_r2 = int(np.max((offs ** 2).sum(-1)))
+    ball_r = int(np.floor(np.sqrt(ball_r2)))
+    r = np.arange(-ball_r, ball_r + 1)
+    ball = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    ball = ball[(ball ** 2).sum(-1) <= ball_r2]
+    return ball, ball_r2, ball_r
+
+
+def _query_neighbors_brick(
+    state: MapState,
+    qpts: torch.Tensor,
+    *,
+    offsets: np.ndarray,
+    resolution: float,
+    nn_k: int,
+    max_dist2: float,
+    time_filter: bool = False,
+    travel_dist: Optional[torch.Tensor] = None,
+    cur_ts=0,
+    local_window_dist: float = 0.0,
+    radius_filter: bool = False,
+    sensor_pos: Optional[torch.Tensor] = None,
+    local_map_radius: float = 0.0,
+    reboot_ts=0,
+    use_mid_ts: bool = False,
+) -> QueryNeighbors:
+    """Brick probe: the 8 bricks (4x4x4 cells each) that cover the ball of
+    `offsets` around each query's cell are gathered whole ([N, 8, 64, 3]
+    records), the ball's cells are taken out of their 512 slots (the cell
+    probe's search), and the candidates are ranked by the distance to
+    their quantized cell-local positions. The JAX package masks the 512
+    slots to the ball and runs k rounds of argmin over them (ties to the
+    lower slot); here the ball's slots are gathered and ranked by a top-k
+    over unique (distance bits, slot) keys, which orders them the same.
+    The distances round as the JAX package's jitted probe does on the CPU,
+    where XLA contracts the position and the squared norms into FMAs.
+    `dist2` is that ranking distance."""
+    C = state.capacity
+    dev = qpts.device
+    qpts = qpts.detach()
+    n = qpts.shape[0]
+    n_bricks = state.btable.shape[0] - 1
+    ball, ball_r2, ball_r = _ball_columns(offsets)
+    ball_t = torch.as_tensor(ball, dtype=torch.int32, device=dev)
+
+    grid = hash3d.grid_coords(qpts, resolution)             # [N, 3] i32
+    b0 = (grid - ball_r) >> 2                               # arithmetic
+    bcs = b0[:, None, :] + torch.as_tensor(_BRICK_NEI, dtype=torch.int32,
+                                           device=dev)[None]
+    rows = state.btable[hash3d.hash_grid(bcs, n_bricks)]    # [N, 8, 64, 3]
+
+    # the ball's cells: their brick among the 8 and their slot in it
+    cell = grid[:, None, :] + ball_t[None]                  # [N, K, 3]
+    j = (cell >> 2) - b0[:, None, :]
+    reach = ((j >= 0) & (j <= 1)).all(-1)
+    jf = (j[..., 0] * 4 + j[..., 1] * 2 + j[..., 2]).clamp(0, 7)
+    slot = ((cell[..., 0] & 3) * 16 + (cell[..., 1] & 3) * 4
+            + (cell[..., 2] & 3))
+    col = (jf * CELLS_PER_BRICK + slot).long()              # [N, K] in 512
+    rec = torch.gather(rows.reshape(n, 8 * CELLS_PER_BRICK, _BRICK_FIELDS),
+                       1, col[..., None].expand(-1, -1, _BRICK_FIELDS))
+    idx, tsc, packed = rec.unbind(-1)
+
+    # the record's position: fma(u8 + 0.5, res / 256, cell * res)
+    step = torch.full((), resolution / 256.0, device=dev)
+    base = cell.to(torch.float32) * resolution
+    pos = [_fma(((packed >> (8 * a)) & 0xFF).to(torch.float32) + 0.5, step,
+                base[..., a]) for a in range(3)]
+    dx, dy, dz = (pos[a] - qpts[:, None, a] for a in range(3))
+    d2 = _fma(dz, dz, _fma(dx, dx, dy * dy))                # [N, K]
+    valid = (idx >= 0) & reach & (d2 <= max_dist2)
+
+    if time_filter:
+        ts_lo = _travel_window_ts_lo(travel_dist, cur_ts, local_window_dist)
+        ts_eff = tsc
+        if use_mid_ts:
+            ts_eff = torch.div(
+                tsc + state.ts_update[torch.where(
+                    idx >= 0, idx.long(), torch.full_like(idx, C).long())],
+                2, rounding_mode="floor")
+        valid = valid & (ts_eff >= ts_lo) & (ts_eff >= reboot_ts)
+    if radius_filter and sensor_pos is not None:
+        sx, sy, sz = (pos[a] - sensor_pos[a] for a in range(3))
+        d2s = _fma(sz, sz, _fma(sx, sx, sy * sy))
+        valid = valid & (d2s < local_map_radius * local_map_radius)
+
+    nn_count = valid.sum(1, dtype=torch.int32)
+    d2 = torch.where(valid, d2, torch.full_like(d2, BIG_DIST2))
+    # unique keys: a non-negative float's bits order as the float; the slot
+    # breaks ties to the lower one, as argmin's first index does
+    key = (d2.view(torch.int32).long() << 10) | col
+    if key.shape[1] < nn_k:          # fewer ball cells than k: pad
+        pad = torch.full((n, nn_k - key.shape[1]), 1 << 9, dtype=torch.long,
+                         device=dev)
+        pad |= torch.tensor(BIG_DIST2, dtype=torch.float32).view(
+            torch.int32).long().item() << 10
+        key = torch.cat([key, pad], 1)
+        idx = torch.cat([idx, torch.full_like(pad, -1, dtype=idx.dtype)], 1)
+        valid = torch.cat([valid, torch.zeros_like(pad, dtype=torch.bool)],
+                          1)
+    top, arg = torch.topk(key, nn_k, dim=1, largest=False, sorted=True)
+    dist2_k = (top >> 10).to(torch.int32).view(torch.float32)
+    valid_k = torch.gather(valid, 1, arg)
+    idx_k = torch.where(valid_k, torch.gather(idx, 1, arg).long(),
+                        torch.full_like(arg, C))
+    return QueryNeighbors(idx=idx_k, dist2=dist2_k, valid=valid_k,
+                          nn_count=nn_count)
 
 
 def _query_neighbors_cells(
@@ -462,7 +693,7 @@ def _compact(state: MapState, keep: torch.Tensor) -> MapState:
         base = torch.zeros_like(arr)
         if fill_first is not None:
             base[:, 0] = fill_first
-        return scatter_set_last(base, dest, arr[:-1])
+        return set_last_(base, dest, arr[:-1])
 
     return state.replace(
         positions=move(state.positions),
@@ -524,7 +755,7 @@ def rehash(state: MapState, cur_ts, *, resolution: float, use_mid_ts: bool,
     table.scatter_reduce_(0, h, torch.arange(C + 1, device=dev),
                           reduce="amax")
     table[B] = -1
-    return state.replace(table=table)
+    return rebuild_probe_cache(state.replace(table=table), resolution)
 
 
 def deform_map(state: MapState, pose_diff: torch.Tensor, *,

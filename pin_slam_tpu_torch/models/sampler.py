@@ -1,5 +1,5 @@
 """Per-ray training-sample generation. Port of
-`pin_slam_tpu/models/sampler.py` (without the incidence labels).
+`pin_slam_tpu/models/sampler.py`.
 
 For each measured endpoint: 1 exact endpoint + `surface_sample_n` Gaussian
 close-to-surface samples + `free_front_n` uniform free-space samples in
@@ -7,7 +7,10 @@ front + `free_behind_n` uniform samples behind the surface, with projective
 SDF labels (positive in front of the surface) and distance weights whose
 sign marks surface (+) vs free space (-). The endpoint and the surface
 samples carry the point's semantic label and colour; the free-space samples
-carry label 0 (unlabeled) and colour 0. Output is ray-major [N*A].
+carry label 0 (unlabeled) and colour 0. With the incidence cosine of each
+ray (`ops/range_image.py`), the free-space columns' labels ("label") or
+loss weights ("weight") are scaled by it; the surface band never is. Output
+is ray-major [N*A].
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ def sample_training_points(
     noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     sem_labels: Optional[torch.Tensor] = None,    # [N] int
     colors: Optional[torch.Tensor] = None,        # [N, C]
+    cos_inc: Optional[torch.Tensor] = None,       # [N] |cos(incidence)|
+    incidence_mode: str = "label",
 ) -> Samples:
     """The random draws come from `generator` (see `draw_sample_noise`)
     unless `noise` hands them over, as the parity tests do."""
@@ -73,13 +78,18 @@ def sample_training_points(
     surf_disp = surf_n01 * surface_sample_range_m
     surf_ratio = surf_disp / safe_dist[:, None] + 1.0
 
-    front_max_ratio = 1.0 - sigma_ratio * surface_sample_range_m / safe_dist
+    # scalar / tensor as a true division (torch's `c / t` multiplies by the
+    # reciprocal, one rounding more than the JAX package's)
+    def over_dist(c: float) -> torch.Tensor:
+        return torch.full_like(safe_dist, c) / safe_dist
+
+    front_max_ratio = 1.0 - over_dist(sigma_ratio * surface_sample_range_m)
     front_ratio = (front_u * (front_max_ratio - free_sample_begin_ratio)[:, None]
                    + free_sample_begin_ratio)
     front_disp = (front_ratio - 1.0) * safe_dist[:, None]
 
-    behind_min_ratio = 1.0 + sigma_ratio * surface_sample_range_m / safe_dist
-    behind_max_ratio = free_sample_end_dist_m / safe_dist + 1.0
+    behind_min_ratio = 1.0 + over_dist(sigma_ratio * surface_sample_range_m)
+    behind_max_ratio = over_dist(free_sample_end_dist_m) + 1.0
     behind_ratio = (behind_u * (behind_max_ratio - behind_min_ratio)[:, None]
                     + behind_min_ratio[:, None])
     behind_disp = (behind_ratio - 1.0) * safe_dist[:, None]
@@ -101,6 +111,16 @@ def sample_training_points(
         dw = (dropoff_max - disp) / (dropoff_max - dropoff_min)
         weight = weight * (torch.clamp(dw, 0.0, 1.0) * 0.8 + 0.2)
     weight[:, 1 + s_n:] *= -1.0
+    sdf_label = -disp
+    if cos_inc is not None:
+        # free-space columns only: the surface band's labels are symmetric
+        # about the endpoint, so its zero crossing is unbiased either way
+        scale = torch.ones((n, a), device=dev)
+        scale[:, 1 + s_n:] = cos_inc[:, None]
+        if incidence_mode == "weight":
+            weight = weight * scale
+        else:
+            sdf_label = sdf_label * scale
 
     sem_out = None
     if sem_labels is not None:
@@ -116,6 +136,6 @@ def sample_training_points(
 
     mask_out = mask[:, None].expand(n, a).reshape(-1)
     return Samples(points=sample_pts.reshape(-1, 3),
-                   sdf_label=(-disp).reshape(-1),
+                   sdf_label=sdf_label.reshape(-1),
                    weight=weight.reshape(-1), mask=mask_out,
                    sem_label=sem_out, color_label=color_out)

@@ -34,13 +34,22 @@ def last_writer(idx: torch.Tensor, size: int) -> torch.Tensor:
     return best[idx] == pos
 
 
-def scatter_set_last(dst: torch.Tensor, idx: torch.Tensor,
-                     src: torch.Tensor) -> torch.Tensor:
-    """Out-of-place `dst.at[idx].set(src)` with last-writer-wins semantics."""
-    keep = last_writer(idx, dst.shape[0])
-    out = dst.clone()
-    out[idx[keep]] = src[keep]
-    return out
+def set_last_(dst: torch.Tensor, idx: torch.Tensor,
+              src: torch.Tensor) -> torch.Tensor:
+    """In place `dst[idx] = src` where the last occurrence of a repeated
+    index wins, with no host sync and no `dst`-sized scratch: every repeat
+    writes the value of its run's last occurrence (a stable sort groups the
+    runs), so the unordered writes of `index_put_` all agree."""
+    n = idx.shape[0]
+    order = torch.argsort(idx, stable=True)
+    s = idx[order]
+    pos = torch.arange(n, device=idx.device)
+    run_end = torch.ones(n, dtype=torch.bool, device=idx.device)
+    run_end[:-1] = s[1:] != s[:-1]
+    last = torch.where(run_end, pos, torch.full_like(pos, n))
+    last = torch.cummin(last.flip(0), 0).values.flip(0)
+    dst[s] = src[order[last]]
+    return dst
 
 
 def _frexp_exponent(top: torch.Tensor) -> torch.Tensor:

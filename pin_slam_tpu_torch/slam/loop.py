@@ -167,7 +167,9 @@ class LoopPgoManager:
     def _register(self, points: np.ndarray, pose_init: np.ndarray,
                   lset_ts: int):
         """Register the scan against the local map around `lset_ts`,
-        starting from `pose_init`, through the loop tracker variant. Returns
+        starting from `pose_init`, through the loop tracker variant: a
+        tracking local set under the join probe, else the whole map state
+        under the travel window and sensor radius of `lset_ts`. Returns
         (valid, refined pose (float64, world), registration covariance
         [6, 6], residual in cm, valid point count), pulled to the host in
         one batch."""
@@ -178,13 +180,20 @@ class LoopPgoManager:
         anchor = pose_init[:3, 3].copy()
         T_init = pose_init.copy()
         T_init[:3, 3] -= anchor
-        lset, feats, _ = sysm.build_lset_track(
-            sysm._tensor(sysm.travel_dist[: sysm.max_frames]), lset_ts,
-            sysm._tensor(pose_init[:3, 3]), sysm.reboot_ts)
         mask = torch.arange(src_pts.shape[0], device=sysm.device) < src_n
-        res = sysm._track_loop(feats, sysm.params["geo_mlp"], src_pts, mask,
-                               sysm._tensor(T_init), sysm._tensor(anchor),
-                               lset)
+        if sysm._use_join:
+            lset, feats, _ = sysm.build_lset_track(
+                sysm._tensor(sysm.travel_dist[: sysm.max_frames]), lset_ts,
+                sysm._tensor(pose_init[:3, 3]), sysm.reboot_ts)
+            res = sysm._track_loop(feats, sysm.params["geo_mlp"], src_pts,
+                                   mask, sysm._tensor(T_init),
+                                   sysm._tensor(anchor), lset)
+        else:
+            res = sysm._track_loop(
+                sysm.params["geo_features"], sysm.params["geo_mlp"], src_pts,
+                mask, sysm._tensor(T_init), sysm._tensor(anchor), None,
+                state=sysm.state,
+                lf=sysm._lf(lset_ts, sensor_pos=pose_init[:3, 3] - anchor))
         flat = torch.cat([t.reshape(-1).to(torch.float64) for t in (
             res.valid, res.residual_cm, res.valid_count, res.pose,
             res.cov)]).cpu().numpy()

@@ -1,8 +1,8 @@
 """Map query + decode. Port of `pin_slam_tpu/slam/map_query.py`: the join
-path of the track+map loop (queries against a per-frame local set) and the
-lset-less path of offline consumers such as the mesher (queries against the
-whole map through the cell-table probe), with the colour and semantic
-heads.
+path (queries against a per-frame local set) and the lset-less path
+(queries against the whole map through the cell-table or the brick-cache
+probe: the track+map loop under `probe_mode` cells or brick, and offline
+consumers such as the mesher), with the colour and semantic heads.
 
 Query points may be given in an anchored frame (world minus a host-side
 anchor) for float32 conditioning; `anchor` is added back where absolute
@@ -57,16 +57,15 @@ class QueryParams(NamedTuple):
 
 
 def _resolve_probe_mode(mode: str) -> str:
-    """'auto' is the join probe (the port runs on the card, where the JAX
-    package picks it for the TPU); 'cells' is the hash-table probe; the
-    brick-cache probe waits for part B of models/neural_points.py."""
+    """'auto' is the join probe: the port runs on the card, where the JAX
+    package picks the join probe for its accelerator (off it the JAX
+    package picks 'cells'; a stated departure). 'cells' and 'brick' are the
+    hash-table probes."""
     if mode in ("auto", "join"):
         return "join"
-    if mode == "cells":
-        return "cells"
-    raise NotImplementedError(
-        f"probe_mode={mode!r}: the port implements the join and cells "
-        "probes; the brick-cache probe is not ported yet")
+    if mode in ("cells", "brick"):
+        return mode
+    raise ValueError(f"unknown probe_mode {mode!r}")
 
 
 def make_query_params(config, after_pgo: bool = True) -> QueryParams:
@@ -93,7 +92,9 @@ def make_query_params(config, after_pgo: bool = True) -> QueryParams:
 
 
 class LocalFilter(NamedTuple):
-    """Arguments of the query-time local-map masking of the cell probe."""
+    """Arguments of the query-time local-map masking of the hash-table
+    probes, and the per-frame sensor origins of the projective label
+    correction."""
 
     travel_dist: torch.Tensor    # [maxT] f32
     cur_ts: object               # int or scalar tensor
@@ -101,6 +102,8 @@ class LocalFilter(NamedTuple):
     sensor_pos: Optional[torch.Tensor] = None  # [3] anchored frame
     local_map_radius: float = 0.0
     reboot_ts: object = 0
+    # [maxT, 3] world sensor origins (proj_correction_on)
+    sensor_origins: Optional[torch.Tensor] = None
 
 
 class QueryOut(NamedTuple):
@@ -267,10 +270,11 @@ def query_decode(
     (its filters are baked into the set, `lf` is ignored) and
     `geo_features` is the COMPACT [L+1, F] array aligned with the set rows;
     with `cand` the k-NN is skipped and the cached candidates are re-ranked.
-    Without `lset`, `state` is probed through its hash table (a "join"
-    configuration keeps no other structure between frames, so it maps to
-    the "cells" probe), positions, orientations and certainty come from
-    the state, and `geo_features` is the full [C+1, F] array.
+    Without `lset`, `state` is probed through its hash table, by the
+    probe `qp.probe_mode` names (a "join" configuration keeps no brick
+    cache, so it maps to the "cells" probe), positions, orientations and
+    certainty come from the state, and `geo_features` is the full [C+1, F]
+    array.
 
     `fused=True` is for forward-only callers: the `weighted_first=False`
     decode then runs in the fused kernel of `ops/fused_decode.py`, or the
@@ -426,7 +430,8 @@ def numerical_grad_from_neighbors(
     m = qpts.shape[0]
     k = qn.idx.shape[1]
     pos = state.positions[qn.idx]                     # [M, k, 3]
-    feats = _maybe_layer_norm(geo_features[qn.idx], qp.layer_norm_on)
+    feats = _maybe_layer_norm(gather_rows_exact(geo_features, qn.idx),
+                              qp.layer_norm_on)
     q6 = qpts[None, :, :] + _shifts6(eps, qpts)[:, None, :]   # [6, M, 3]
     diff = q6[:, :, None, :] - pos[None]              # [6, M, k, 3]
     d2 = torch.sum(diff * diff, dim=-1)

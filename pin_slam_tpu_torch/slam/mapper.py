@@ -1,16 +1,22 @@
 """Online mapping: replay pool + per-frame training of the neural map.
-Port of `pin_slam_tpu/slam/mapper.py` on the join path (one device),
-with the colour and semantic terms.
+Port of `pin_slam_tpu/slam/mapper.py` (one device), with the colour and
+semantic terms, the gradient-consistency term and the projective label
+correction.
 
 * The replay pool is a fixed-capacity RING of sample tensors; a frame's
   samples land as one contiguous block and the ring wrap overwrites the
   oldest blocks. The window filter marks out-of-window samples dead
   (weight = 0) instead of compacting.
-* Each frame trains on COMPACT local features: the rows of the map that the
-  frame's local set holds are gathered once, trained with a fresh Adam
-  (the reference creates a new optimizer per mapping call), and scattered
-  back once. Every iteration's neighbor candidates come from ONE batched
-  k-NN probe: map positions do not move during a frame's training.
+* With a local set (the join probe) each frame trains on COMPACT local
+  features: the rows of the map that the frame's local set holds are
+  gathered once, trained with a fresh Adam (the reference creates a new
+  optimizer per mapping call), and scattered back once. Every iteration's
+  neighbor candidates come from ONE batched k-NN probe: map positions do
+  not move during a frame's training.
+* Without one (`probe_mode` cells or brick) each iteration queries the
+  whole map state through its hash table under the travel window, a fresh
+  Adam steps the whole [C+1, F] feature array, and each iteration adds its
+  certainty to the map.
 * Colour features train beside the geometry features, and the colour and
   semantic decoders beside the SDF decoder; all three decoders freeze
   together (`train_decoder=False`).
@@ -175,26 +181,64 @@ def mapping_loss(geo_features, geo_mlp, batch: dict, mask, cand, cvalid,
                  freespace_label_on: bool = False,
                  sem_label_decimation: int = 1, color_on: bool = False,
                  weight_i: float = 1.0, color_channel: int = 0,
-                 color_features=None, color_mlp=None, sem_mlp=None):
-    """One training batch's loss against the compact local features
-    (join path with cached candidates): the SDF loss, the eikonal term,
-    and with `semantic_on` the NLL of the labelled samples (label > 0, or
-    >= 0 with `freespace_label_on`), with `color_on` the L1 colour loss of
-    the surface samples (the compact `color_features` and `color_mlp`).
-    Returns (loss, aux) with aux carrying the certainty-update neighbor
-    info."""
+                 color_features=None, color_mlp=None, sem_mlp=None,
+                 state: Optional[npm.MapState] = None,
+                 lf: Optional[mq.LocalFilter] = None,
+                 eik_shared_neighbors: bool = False,
+                 proj_correction_on: bool = False,
+                 consistency_loss_on: bool = False, weight_c: float = 0.5,
+                 consistency_count: int = 1000,
+                 consistency_range: float = 0.05, cons_u=None):
+    """One training batch's loss: the SDF loss, the eikonal term, and with
+    `semantic_on` the NLL of the labelled samples (label > 0, or >= 0 with
+    `freespace_label_on`), with `color_on` the L1 colour loss of the
+    surface samples, with `consistency_loss_on` the gradient-consistency
+    term (1 - cos between the numerical SDF gradients at the first
+    min(consistency_count, bs) samples and at those samples shifted by
+    (2 `cons_u` - 1) * consistency_range, `cons_u` [m, 3] uniforms), and
+    with `proj_correction_on` the projective labels scaled by |cos| between
+    the learned numerical gradient and the sample's ray from
+    `lf.sensor_origins`.
+
+    With `lset` the features are the compact [L+1, F] arrays aligned with
+    the set and `cand`/`cvalid` its cached candidates (the join route);
+    with `lset=None` they are the map's [C+1, F] arrays and every query
+    probes `state` under `lf` (the state route), the eikonal term through
+    six shifted queries, or through the base query's neighbors with
+    `eik_shared_neighbors`. Returns (loss, aux) with aux carrying the
+    certainty-update neighbor info."""
     coord = batch["coord"]
     sdf_label = batch["sdf_label"]
     weight = torch.abs(batch["weight"])
     mask = mask & (weight > 0.0)    # weight == 0 marks dead pool rows
+    eps = numerical_grad_eps
+    heads = dict(color_features=color_features,
+                 color_mlp=color_mlp if color_on else None,
+                 sem_mlp=sem_mlp if semantic_on else None,
+                 color_channel=color_channel)
+    # the probe of every further query of this batch
+    where = dict(lset=lset) if lset is not None else dict(state=state, lf=lf)
 
-    cand_pack = (mq.pack_lset_nodiff(lset), geo_features)
-    out = mq.query_decode(
-        geo_features, geo_mlp, coord, qp, lset=lset, cand=(cand, cvalid),
-        cand_pack=cand_pack, color_features=color_features,
-        color_mlp=color_mlp if color_on else None,
-        sem_mlp=sem_mlp if semantic_on else None,
-        color_channel=color_channel)
+    cand_pack = None
+    if lset is not None:
+        cand_pack = (mq.pack_lset_nodiff(lset), geo_features)
+        out = mq.query_decode(geo_features, geo_mlp, coord, qp, lset=lset,
+                              cand=(cand, cvalid), cand_pack=cand_pack,
+                              **heads)
+    else:
+        out = mq.query_decode(geo_features, geo_mlp, coord, qp, state=state,
+                              lf=lf, **heads)
+    if proj_correction_on and lf is not None \
+            and lf.sensor_origins is not None:
+        g_all = mq.query_sdf_numerical_grad(geo_features, geo_mlp, coord,
+                                            eps, qp, **where)
+        origins = lf.sensor_origins
+        ray = coord - origins[torch.clamp(batch["ts"].long(), 0,
+                                          origins.shape[0] - 1)]
+        cos = torch.abs(torch.sum(g_all * ray, -1)) / (
+            torch.linalg.norm(g_all, dim=-1) * torch.linalg.norm(ray, dim=-1)
+            + 1e-12)
+        sdf_label = sdf_label * cos
     if main_loss_type == "bce":
         sdf_loss = L.sdf_bce_loss(out.sdf, sdf_label, sigma_sigmoid_m,
                                   weight, mask, weighted=loss_weight_on)
@@ -209,11 +253,45 @@ def mapping_loss(geo_features, geo_mlp, batch: dict, mask, cand, cvalid,
     eik_loss = torch.zeros((), device=coord.device)
     if ekional_loss_on and weight_e > 0:
         d = gradient_decimation
-        g = mq.numerical_grad_shared_join(
-            lset, geo_features, geo_mlp, coord[::d], numerical_grad_eps, qp,
-            cand=(cand[::d], cvalid[::d]), cand_pack=cand_pack)
+        if eik_shared_neighbors:
+            # the base query's neighbors serve the shifted queries (an
+            # approximation the JAX package keeps off by default)
+            qn = out.neighbors
+            g = mq.numerical_grad_from_neighbors(
+                state, geo_features, geo_mlp, coord[::d],
+                npm.QueryNeighbors(idx=qn.idx[::d], dist2=qn.dist2[::d],
+                                   valid=qn.valid[::d],
+                                   nn_count=qn.nn_count[::d]), eps, qp)
+        elif lset is not None:
+            g = mq.numerical_grad_shared_join(
+                lset, geo_features, geo_mlp, coord[::d], eps, qp,
+                cand=(cand[::d], cvalid[::d]), cand_pack=cand_pack)
+        else:
+            g = mq.query_sdf_numerical_grad(geo_features, geo_mlp,
+                                            coord[::d], eps, qp, state=state,
+                                            lf=lf)
         eik_loss = L.eikonal_loss(g, mask[::d])
         total = total + weight_e * eik_loss
+    if consistency_loss_on:
+        if cons_u is None:
+            raise ValueError("mapping_loss: consistency_loss_on needs the "
+                             "shift draws cons_u")
+        m = min(consistency_count, coord.shape[0])
+        base = coord[:m]
+        shift = (cons_u * 2.0 - 1.0) * consistency_range
+        g_base = mq.query_sdf_numerical_grad(geo_features, geo_mlp, base,
+                                             eps, qp, **where)
+        g_near = mq.query_sdf_numerical_grad(geo_features, geo_mlp,
+                                             base + shift, eps, qp, **where)
+        cos = torch.sum(g_base * g_near, -1) / (
+            torch.linalg.norm(g_base, dim=-1)
+            * torch.linalg.norm(g_near, dim=-1) + 1e-12)
+        mm = mask[:m]
+        cons = (torch.where(mm, 1.0 - cos, torch.zeros_like(cos)).sum()
+                / torch.clamp(mm.sum().to(torch.float32), min=1.0))
+        total = total + weight_c * cons
+    else:
+        cons = torch.zeros((), device=coord.device)
     zero = torch.zeros((), device=coord.device)
     sem_loss = color_loss = zero
     if semantic_on and out.sem_log_prob is not None:
@@ -231,7 +309,8 @@ def mapping_loss(geo_features, geo_mlp, batch: dict, mask, cand, cvalid,
         total = total + weight_i * color_loss
     aux = {"qn": out.neighbors, "w": out.weights, "ts": batch["ts"],
            "sdf_loss": sdf_loss, "eikonal_loss": eik_loss,
-           "sem_loss": sem_loss, "color_loss": color_loss}
+           "sem_loss": sem_loss, "color_loss": color_loss,
+           "consistency_loss": cons}
     return total, aux
 
 
@@ -273,12 +352,15 @@ def _randint(generator, n: int, high: torch.Tensor, device) -> torch.Tensor:
 
 
 def draw_train_indices(generator, pool: PoolState, *, n_iters: int, bs: int,
-                       bs_new: int, subset_hist: int):
+                       bs_new: int, subset_hist: int, whole_map: bool = False,
+                       cons_m: int = 0):
     """All random draws of one `make_train_loop` run: the history indices
-    ([S_h] for the subset path, [n_iters, bs] otherwise) and the new-sample
-    slots [n_iters, bs_new] into pool.new_idx."""
+    ([S_h] for the subset path of a local set, [n_iters, bs] otherwise),
+    the new-sample slots [n_iters, bs_new] into pool.new_idx and, with
+    `cons_m` > 0, the consistency term's uniform shifts [n_iters, cons_m,
+    3]."""
     dev = pool.coord.device
-    if n_iters <= 32 and subset_hist >= bs:
+    if n_iters <= 32 and subset_hist >= bs and not whole_map:
         S_h = max(bs, min(subset_hist, n_iters * bs))
         hist = _randint(generator, S_h, pool.count, dev)
     else:
@@ -286,7 +368,11 @@ def draw_train_indices(generator, pool: PoolState, *, n_iters: int, bs: int,
                         dev).reshape(n_iters, bs)
     new_sel = _randint(generator, n_iters * bs_new, pool.new_count,
                        dev).reshape(n_iters, bs_new)
-    return {"hist": hist, "new_sel": new_sel}
+    draws = {"hist": hist, "new_sel": new_sel}
+    if cons_m > 0:
+        draws["cons_u"] = torch.rand((n_iters, cons_m, 3),
+                                     generator=generator, device=dev)
+    return draws
 
 
 def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
@@ -294,20 +380,27 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                     loss_kwargs: dict, subset_hist: int = 0):
     """Whole per-frame training run (`n_iters` mapping iterations).
 
-    With n_iters <= 32 and subset_hist >= bs (the steady-state frames) it
-    draws ONE history subset, probes it once, and lets each iteration take
-    a rotating contiguous window of it plus a per-iteration new-sample
-    tail; otherwise (the long first-frame run) each iteration draws its own
-    batch, and all batches are probed up front in chunks.
+    With a local set and n_iters <= 32 and subset_hist >= bs (the
+    steady-state frames) it draws ONE history subset, probes it once, and
+    lets each iteration take a rotating contiguous window of it plus a
+    per-iteration new-sample tail; otherwise (the long first-frame run)
+    each iteration draws its own batch, and all batches are probed up front
+    in chunks. Without a local set (`lset=None`) each iteration draws its
+    own batch and queries the whole map state under the LocalFilter `lf`.
 
-    Returns loop(params, state, pool, generator, use_new, lset, draws=None)
-    -> (params, state, losses [n_iters]); `draws` (from
-    `draw_train_indices`) replaces the generator's draws."""
+    Returns loop(params, state, pool, generator, use_new, lset, draws=None,
+    lf=None, terms=None) -> (params, state, losses [n_iters]); `draws`
+    (from `draw_train_indices`) replaces the generator's draws; `lf`
+    carries the sensor origins of the projective correction on either
+    route; a `terms` dict receives the per-iteration consistency term
+    ("consistency_loss" [n_iters])."""
     pre_gather = n_iters <= 32
     use_subset = pre_gather and subset_hist >= bs
     cand_k = qp.nn_k + 2
     semantic_on = loss_kwargs.get("semantic_on", False)
     color_on = loss_kwargs.get("color_on", False)
+    cons_m = (min(loss_kwargs.get("consistency_count", 1000), bs)
+              if loss_kwargs.get("consistency_loss_on", False) else 0)
 
     def probe_chunked(coords, lset):
         idx_parts, val_parts = [], []
@@ -343,20 +436,26 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         return batch
 
     def loop(params, state: npm.MapState, pool: PoolState, generator,
-             use_new: torch.Tensor, lset, draws: Optional[dict] = None):
+             use_new: torch.Tensor, lset, draws: Optional[dict] = None,
+             lf: Optional[mq.LocalFilter] = None,
+             terms: Optional[dict] = None):
         dev = state.positions.device
         C = state.capacity
+        whole = lset is None
         if draws is None:
             draws = draw_train_indices(generator, pool, n_iters=n_iters,
                                        bs=bs, bs_new=bs_new,
-                                       subset_hist=subset_hist)
-        gidx = lset.gidx
-        lfeat = params["geo_features"][gidx].detach().clone()
+                                       subset_hist=subset_hist,
+                                       whole_map=whole, cons_m=cons_m)
+        cons_u = draws.get("cons_u")
+        # the trained feature rows: the local set's, or the whole map's
+        rows_of = (lambda a: a) if whole else (lambda a: a[lset.gidx])
+        lfeat = rows_of(params["geo_features"]).detach().clone()
         lfeat.requires_grad_(True)
         train_vars = [lfeat]
         lcfeat = None
         if color_on and params.get("color_features") is not None:
-            lcfeat = params["color_features"][gidx].detach().clone()
+            lcfeat = rows_of(params["color_features"]).detach().clone()
             lcfeat.requires_grad_(True)
             train_vars.append(lcfeat)
         mlps = {}
@@ -376,8 +475,21 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         # new-sample mix is disabled
         slot = use_new & (torch.arange(bs_new, device=dev) < pool.new_count)
         new_rows = pool.new_idx[draws["new_sel"]]         # [n_iters, bs_new]
+        extra = dict(lf=lf)
 
-        if use_subset:
+        if whole:
+            extra["state"] = state
+            hist = draws["hist"]                           # [n_iters, bs]
+            if bs_new > 0:
+                tail = torch.where(slot[None], new_rows, hist[:, :bs_new])
+                idx_all = torch.cat([hist[:, :bs - bs_new], tail], dim=1)
+            else:
+                idx_all = hist
+
+            def batch_of(i):
+                return (unpack(pack_pool_rows(pool, idx_all[i])),
+                        idx_all[i] < pool.count, None, None)
+        elif use_subset:
             S_h = draws["hist"].shape[0]
             sub_idx = torch.cat([draws["hist"], new_rows.reshape(-1)])
             packed = pack_pool_rows(pool, sub_idx)
@@ -425,6 +537,7 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                         mask_all[i], cand_all[i], cval_all[i])
 
         losses = []
+        cons_terms = []
         contribs = []
         for i in range(n_iters):
             batch, bmask, cnd, cnv = batch_of(i)
@@ -432,11 +545,20 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
             loss, aux = mapping_loss(
                 lfeat, mlp, batch, bmask, cnd, cnv, lset, qp,
                 color_features=lcfeat, color_mlp=mlps.get("color_mlp"),
-                sem_mlp=mlps.get("sem_mlp"), **loss_kwargs)
+                sem_mlp=mlps.get("sem_mlp"),
+                cons_u=None if cons_u is None else cons_u[i], **extra,
+                **loss_kwargs)
             loss.backward()
             opt.step()
             losses.append(loss.detach())
-            if not use_subset:
+            cons_terms.append(aux["consistency_loss"].detach())
+            if whole:
+                # the certainty and update timestamps of every iteration's
+                # neighbors, before the next iteration's query
+                with torch.no_grad():
+                    npm.accumulate_certainty(state, aux["qn"],
+                                             aux["w"].detach(), aux["ts"])
+            elif not use_subset:
                 qn = aux["qn"]
                 contribs.append((
                     torch.where(qn.valid, qn.idx,
@@ -446,6 +568,23 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                     torch.where(qn.valid, aux["ts"][:, None],
                                 torch.zeros_like(qn.idx,
                                                  dtype=torch.int32))))
+
+        if terms is not None:
+            terms["consistency_loss"] = torch.stack(cons_terms)
+        new_params = dict(params)
+        for name, m in mlps.items():
+            new_params[name] = {k: [t.detach() for t in m[k]]
+                                for k in ("w", "b")}
+        if whole:
+            # the trained whole-map features replace the map's in place
+            with torch.no_grad():
+                state.geo_features.copy_(lfeat.detach())
+                if lcfeat is not None:
+                    state.color_features.copy_(lcfeat.detach())
+            new_params["geo_features"] = state.geo_features
+            if lcfeat is not None:
+                new_params["color_features"] = state.color_features
+            return new_params, state, torch.stack(losses)
 
         if use_subset:
             # a subset row's neighbors and IDW weights are frame-constant,
@@ -496,6 +635,7 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
 
         # scatter the trained local rows back once (padded rows all point
         # at the dump row C, which is reset afterwards)
+        gidx = lset.gidx
         with torch.no_grad():
             state.geo_features[gidx] = lfeat.detach()
             state.geo_features[C] = 0.0
@@ -506,13 +646,9 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
             state.certainty[C] = 0.0
             state.ts_update[gidx] = ts_l
             state.ts_update[C] = 0
-        new_params = dict(params)
         new_params["geo_features"] = state.geo_features
         if lcfeat is not None:
             new_params["color_features"] = state.color_features
-        for name, m in mlps.items():
-            new_params[name] = {k: [t.detach() for t in m[k]]
-                                for k in ("w", "b")}
         return new_params, state, torch.stack(losses)
 
     return loop

@@ -3,7 +3,9 @@ of `pin_slam_tpu/slam/mesher.py`.
 
 The dense grid coordinates stream in `infer_bs`-sized batches through the
 lset-less query/decode path (`map_query.query_decode` with a `MapState`:
-the cell-table probe, then the decode), the marching mask keeps only cells
+the probe the query parameters name, the cell-table probe under the join
+and cells probes and the brick probe under brick, then the decode), the
+marching mask keeps only cells
 whose corners all saw >= mesh_min_nn neighbors, and the iso-surface is
 extracted on the host by the vectorized marching-tetrahedra pass of
 `ops/marching.py`. Chunking over the map bounding box keeps peak memory

@@ -1,8 +1,11 @@
 """PIN-SLAM system orchestrator: the per-frame track+map loop. Port of
-`pin_slam_tpu/slam/system.py`, the join-mode geometry slice:
+`pin_slam_tpu/slam/system.py`:
 
   I.   preprocess   — range/z crop + train/source voxel downsample
-  II.  odometry     — local-set build + GN registration + pose selection
+  II.  odometry     — GN registration + pose selection: against a local set
+                      under the join probe, against the whole map state
+                      through its hash table under `probe_mode` cells or
+                      brick
   III. loop closure — the caller's `loop_hook` (slam/loop.LoopPgoManager
                       .after_frame) after the frame's host pull
   IV.  mapping      — the map-based dynamic filter (`dynamic_filter_on`,
@@ -10,24 +13,30 @@
                       `visibility_filter_on`), sample + map insert + pool
                       append + new-sample detection, then the per-frame
                       training run, preceded every `ba_freq_frame` frames
-                      by sliding-window bundle adjustment (slam/ba.py)
+                      by sliding-window bundle adjustment (slam/ba.py);
+                      the training runs over compact local features under
+                      the join probe and over the whole map otherwise
 
 With `color_on` the points carry colour columns ([N, 3 + color_channel]):
 the map keeps colour features and a colour decoder, the tracker takes its
-uncached colour path against a local set built each frame, and the samples
-train the colour head. With `semantic_on`, `process_frame(sem_labels=...)`
-labels the points and the samples train the semantic head.
+uncached colour path (against a local set built each frame under the join
+probe), and the samples train the colour head. With `semantic_on`, `process_frame(sem_labels=...)`
+labels the points and the samples train the semantic head. The training
+options `incidence_label_on` (geometric incidence labels,
+ops/range_image.py), `consistency_loss_on` and `proj_correction_on` work
+under every probe.
 
-In localization mode (`load_map`) the decoders and the map are frozen: the
-join set is built once over the whole loaded map, every frame is tracked
-against it without the travel window, and no mapping, training, pruning or
-pool filtering is dispatched.
+In localization mode (`load_map`) the decoders and the map are frozen:
+every frame is tracked against the whole loaded map without the travel
+window (through a join set built once under the join probe), and no
+mapping, training, pruning or pool filtering is dispatched.
 
 The host keeps float64 pose chains and travel distance; the device works in
 float32 with a per-frame anchor (the last sensor position). The map grows
-its capacity when it passes 90 % of it. The brick-cache probe, incidence
-labels, the consistency loss and data parallelism are not ported yet and
-raise NotImplementedError.
+its capacity when it passes 90 % of it. Data parallelism is not ported and
+raises NotImplementedError. Under the brick probe the map keeps its brick
+cache; under the join and cell probes it keeps none (the JAX package
+maintains one under cells too, which no probe of that mode reads).
 
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
@@ -48,6 +57,7 @@ from pin_slam_tpu_torch.models import neural_points as npm
 from pin_slam_tpu_torch.models.decoder import init_mlp_params
 from pin_slam_tpu_torch.models.sampler import sample_training_points
 from pin_slam_tpu_torch.ops import knn_join as kj
+from pin_slam_tpu_torch.ops.range_image import estimate_scan_incidence
 from pin_slam_tpu_torch.ops.transforms import (
     np_rotation_angle_deg,
     np_se3_inv,
@@ -103,22 +113,9 @@ def _pad_points(pts: np.ndarray, cap: int, attr_dim: int = 0):
 
 
 def _check_supported(c: Config) -> None:
-    off = {
-        "consistency_loss_on": c.consistency_loss_on,
-        "incidence_label_on": c.incidence_label_on,
-        "dp_on": c.dp_on,
-    }
-    on = [k for k, v in off.items() if v]
-    if on:
+    if c.dp_on:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(on)} (the port runs the join-mode "
-            "loop with colour and semantics, bundle adjustment and the "
-            "dynamic filter)")
-    if c.probe_mode not in ("auto", "join"):
-        raise NotImplementedError(
-            f"probe_mode={c.probe_mode!r}: the track+map loop implements "
-            "only the join probe (the cells probe serves queries without a "
-            "local set, such as the mesher's)")
+            "not ported yet: dp_on (the port runs on one card)")
 
 
 class PinSLAMSystem:
@@ -143,10 +140,14 @@ class PinSLAMSystem:
         # orientations is always on (identity until the first deformation)
         self.after_pgo = False
 
+        # the join probe queries per-frame local sets; the cell and brick
+        # probes query the whole map state through its hash table
+        self._use_join = self.qp.probe_mode == "join"
         dev = self.device
-        self.state = npm.init_map_state(c.map_capacity, c.buffer_size,
-                                        c.feature_dim, color_on=c.color_on,
-                                        device=dev)
+        self.state = npm.init_map_state(
+            c.map_capacity, c.buffer_size, c.feature_dim,
+            color_on=c.color_on, device=dev,
+            with_btable=self.qp.probe_mode == "brick")
         self.pool = mp.init_pool(c.pool_capacity,
                                  c.frame_point_cap * c.all_sample_n,
                                  semantic_on=c.semantic_on,
@@ -192,6 +193,10 @@ class PinSLAMSystem:
         self.last_train_losses = None
         # the last training's {"loss": device scalar}, read by the logger
         self.last_train_metrics = None
+        # the last training's per-iteration terms ({"consistency_loss":
+        # [iters]}) and the last frame's incidence cosines and their rows
+        self.last_train_terms = None
+        self.last_incidence = None
         self.last_ba_losses = None
         self.last_track_iters = -1
         # the dynamic filter's last verdict over the train cloud (rows <
@@ -244,6 +249,11 @@ class PinSLAMSystem:
             color_on=c.color_on,
             weight_i=c.weight_i,
             color_channel=c.color_channel,
+            proj_correction_on=c.proj_correction_on,
+            consistency_loss_on=c.consistency_loss_on,
+            weight_c=c.weight_c,
+            consistency_count=c.consistency_count,
+            consistency_range=c.consistency_range,
         )
         tp = tk.TrackerParams(
             reg_iter_n=c.reg_iter_n,
@@ -348,10 +358,13 @@ class PinSLAMSystem:
                                        cfeats=cfeats, src_attr=src_attr)
 
     def track_chain_cached(self, feats, src_pts, src_n, T_init, td, anchor,
-                           fid, lset, cfeats=None, src_attr=None):
-        """GN registration against a given local set + pose selection.
-        Colour tracking takes the set's colour features `cfeats` and the
-        source points' colours `src_attr`."""
+                           fid, lset, cfeats=None, src_attr=None, state=None,
+                           lf=None):
+        """GN registration against a given local set (or, with `lset=None`,
+        against the map `state` under the LocalFilter `lf`: the cell and
+        brick probes) + pose selection. Colour tracking takes the colour
+        features `cfeats` aligned with `feats` and the source points'
+        colours `src_attr`."""
         c = self.config
         mask = torch.arange(src_pts.shape[0], device=self.device) < src_n
         color_kw = {}
@@ -362,7 +375,8 @@ class PinSLAMSystem:
                             color_features=cfeats,
                             color_mlp=self.params["color_mlp"])
         res = self._track(feats, self.params["geo_mlp"], src_pts, mask,
-                          T_init, anchor, lset, **color_kw)
+                          T_init, anchor, lset, state=state, lf=lf,
+                          **color_kw)
         T32, td_new, mapok = self.select_pose(
             res.valid, res.iterations, res.pose, T_init, anchor, td, fid)
         return res, T32, td_new, mapok
@@ -462,6 +476,14 @@ class PinSLAMSystem:
             & do_map
         if static_mask is not None:
             mask = mask & static_mask
+        cos_inc = None
+        if c.incidence_label_on:
+            cos_inc = estimate_scan_incidence(
+                train_pts, mask, n_az=c.incidence_bins_az,
+                n_el=c.incidence_bins_el,
+                range_gate_m=c.incidence_range_gate_m,
+                cos_floor=c.incidence_cos_floor)
+            self.last_incidence = (cos_inc, mask)
         smp = sample_training_points(
             self.gen, train_pts, mask,
             surface_sample_range_m=c.surface_sample_range_m,
@@ -472,7 +494,8 @@ class PinSLAMSystem:
             max_range=c.max_range, dist_weight_on=c.dist_weight_on,
             dist_weight_scale=c.dist_weight_scale,
             behind_dropoff_on=c.behind_dropoff_on, noise=noise,
-            sem_labels=sem, colors=colors)
+            sem_labels=sem, colors=colors, cos_inc=cos_inc,
+            incidence_mode=c.incidence_mode)
         world = transform_points(smp.points, T)
         # ONE near-surface compaction feeds both the map-insert candidates
         # and the new-sample detection
@@ -490,7 +513,8 @@ class PinSLAMSystem:
             self.state, upd_pts, upd_mask, cur_ts, travel_dist,
             resolution=c.voxel_size_m,
             local_window_dist=self.local_window_dist,
-            force_all_new=force_all_new, insert_cap=insert_cap)
+            force_all_new=force_all_new, insert_cap=insert_cap,
+            maintain_btable=not self._use_join)
         frame_start = mp.append_start(self.pool, world.shape[0])
         self.pool = mp.append_samples(self.pool, world, smp.sdf_label,
                                       smp.weight, smp.mask, cur_ts,
@@ -589,14 +613,19 @@ class PinSLAMSystem:
 
     def _lf(self, cur_ts: int, sensor_pos=None) -> mq.LocalFilter:
         """The travel-window filter of lset-less queries of the whole map
-        (bundle adjustment, the dynamic filter) at frame `cur_ts`."""
+        (the tracker and the training under the cell and brick probes,
+        bundle adjustment, the dynamic filter) at frame `cur_ts`, with the
+        sensor origins of the frames under `proj_correction_on`."""
         c = self.config
         return mq.LocalFilter(
             travel_dist=self._tensor(self.travel_dist[: self.max_frames]),
             cur_ts=int(cur_ts), local_window_dist=self.local_window_dist,
             sensor_pos=None if sensor_pos is None
             else self._tensor(sensor_pos),
-            local_map_radius=c.local_map_radius, reboot_ts=self.reboot_ts)
+            local_map_radius=c.local_map_radius, reboot_ts=self.reboot_ts,
+            sensor_origins=self._tensor(
+                self.pgo_poses[: self.max_frames, :3, 3])
+            if c.proj_correction_on else None)
 
     def set_gt_poses(self, gt: np.ndarray):
         self.gt_poses = gt
@@ -633,20 +662,25 @@ class PinSLAMSystem:
             for a in (s.positions, s.orientations, s.geo_features,
                       s.ts_create, s.ts_update, s.certainty,
                       s.color_features) if a is not None)
-        aux = s.table.element_size() * s.table.numel()
+        aux = s.table.element_size() * s.table.numel() + (
+            0 if s.btable is None
+            else s.btable.element_size() * s.btable.numel())
         frac = int(s.count) / max(s.capacity, 1)
         return (per_point * frac + aux) / (1024.0 ** 2)
 
     def load_map(self, path: str):
         """Enter localization mode with a saved map (`utils/map_io`): the
         map and the decoders are frozen, no mapping runs, and every frame
-        is tracked against the whole map (no travel window) through a join
-        set built here once over all live rows."""
+        is tracked against the whole map (no travel window): through a join
+        set built here once over all live rows under the join probe, else
+        through the map's hash table (with its brick cache, rebuilt here,
+        under the brick probe)."""
         from pin_slam_tpu_torch.utils.map_io import load_implicit_map
 
         c = self.config
-        state, mlps, _ = load_implicit_map(path, capacity=c.map_capacity,
-                                           device=self.device)
+        state, mlps, _ = load_implicit_map(
+            path, capacity=c.map_capacity, device=self.device,
+            with_btable=self.qp.probe_mode == "brick")
         self.state = state
         self.params["geo_mlp"] = mlps["geo_mlp"]
         for name, on in (("color_mlp", c.color_on),
@@ -658,6 +692,8 @@ class PinSLAMSystem:
         self.localization_mode = True
         # a saved map may carry deformed orientations
         self._map_deformed = bool((state.orientations[:, 1:4] != 0).any())
+        if not self._use_join:
+            return
         cnt = int(state.count)
         cap = max(1, -(-cnt // kj.TL)) * kj.TL
         live = torch.arange(state.capacity, device=self.device) < cnt
@@ -739,7 +775,18 @@ class PinSLAMSystem:
             T_init[:3, 3] -= anchor
             T_init_d = self._tensor(T_init)
             anchor_d = self._tensor(anchor)
-            if self.localization_mode:
+            if not self._use_join:
+                # the whole map through its hash table, every GN iteration;
+                # localization mode drops the travel window
+                res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
+                    self.params["geo_features"], src_pts, src_n, T_init_d,
+                    td_host, anchor_d, frame_id, None,
+                    cfeats=self.params.get("color_features"),
+                    src_attr=src_attr, state=self.state,
+                    lf=None if self.localization_mode else self._lf(
+                        frame_id - 1,
+                        sensor_pos=self.last_pose_ref[:3, 3] - anchor))
+            elif self.localization_mode:
                 # the frozen map's join set, built once by load_map
                 res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
                     self._loc_feats, src_pts, src_n, T_init_d, td_host,
@@ -849,10 +896,11 @@ class PinSLAMSystem:
                     self.decoder_freezed = True
                 if ba_due:
                     run_bundle_adjustment(self, frame_id)
-                # the host travel_dist[frame_id] is not set before the pull:
-                # pass the device copy select_pose already extended
+                # the host travel_dist[frame_id] and pose are not set before
+                # the pull: pass the device copies select_pose made
                 self.train(cur_iters, frame_id,
-                           td_dev=td_dev if lag_pull else None)
+                           td_dev=td_dev if lag_pull else None,
+                           T_dev=T32_dev if lag_pull else None)
 
         ba_due = (c.track_on and c.ba_freq_frame > 0
                   and (frame_id + 1) % c.ba_freq_frame == 0)
@@ -937,23 +985,38 @@ class PinSLAMSystem:
         self.cur_frame = frame_id + 1
         return self.cur_pose_ref.copy()
 
-    def train(self, iters: int, frame_id: int, td_dev=None, draws=None):
-        """Run `iters` mapping iterations with a fresh optimizer over the
-        frame's training local set; the set and its trained compact features
-        become the next frame's tracking structure. `draws` replaces the
-        training loop's random draws (parity tests)."""
-        travel = td_dev if td_dev is not None else \
-            self._tensor(self.travel_dist[: self.max_frames])
-        lset = self.build_lset_train(travel, frame_id, self.reboot_ts)
+    def train(self, iters: int, frame_id: int, td_dev=None, T_dev=None,
+              draws=None):
+        """Run `iters` mapping iterations with a fresh optimizer. Under the
+        join probe they run over the frame's training local set, and the
+        set and its trained compact features become the next frame's
+        tracking structure; under the cell and brick probes over the whole
+        map. `td_dev` / `T_dev` are the device's travel distances and pose
+        of this frame when the host's are not pulled yet. `draws` replaces
+        the training loop's random draws (parity tests)."""
+        lf = self._lf(frame_id)
+        if td_dev is not None:
+            lf = lf._replace(travel_dist=td_dev)
+        if T_dev is not None and lf.sensor_origins is not None:
+            origins = lf.sensor_origins.clone()
+            origins[frame_id] = T_dev[:3, 3]
+            lf = lf._replace(sensor_origins=origins)
+        lset = None
+        if self._use_join:
+            lset = self.build_lset_train(lf.travel_dist, frame_id,
+                                         self.reboot_ts)
         use_new = torch.tensor(not (self.lose_track or self.stop_status),
                                device=self.device)
         loop = self._get_train_loop(iters, not self.decoder_freezed)
+        terms = {}
         self.params, self.state, losses = loop(
             self.params, self.state, self.pool, self.gen, use_new, lset,
-            draws=draws)
-        self._cur_lset = lset
-        self._cur_track_feats = self.state.geo_features[lset.gidx]
+            draws=draws, lf=lf, terms=terms)
+        if lset is not None:
+            self._cur_lset = lset
+            self._cur_track_feats = self.state.geo_features[lset.gidx]
         self.last_train_losses = losses
+        self.last_train_terms = terms
         self.last_train_metrics = {"loss": losses[-1]}
         return self.last_train_metrics
 

@@ -1,9 +1,11 @@
 """Correspondence-free point-to-SDF registration (odometry). Port of
-`pin_slam_tpu/slam/tracker.py` on the join path: cached candidates for
-geometry-only tracking, and the uncached path of colour tracking, which
-probes the map every iteration and weighs each point by how well the map's
-colour agrees with the point's (`color_mode` 1) or adds a photometric term
-(`color_mode` 2).
+`pin_slam_tpu/slam/tracker.py`: cached candidates for geometry-only
+tracking against a local set, and the uncached path, which probes the map
+every iteration: the colour tracking's (it weighs each point by how well
+the map's colour agrees with the point's, `color_mode` 1, or adds a
+photometric term, `color_mode` 2), and every registration without a local
+set, which probes the whole map state through its hash table
+(`probe_mode` cells or brick) with the travel-window filter.
 
 Gauss-Newton/LM in float32 in a sensor-anchored frame: transform -> SDF
 and its analytic gradient from the map -> Geman-McClure weights -> 6x6
@@ -85,11 +87,13 @@ def intensity(color: torch.Tensor, channels: int) -> torch.Tensor:
 def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
     """Returns track(geo_features, geo_mlp, src, src_mask, init_T, anchor,
     lset, loop_reg=False, src_intensity=None, color_features=None,
-    color_mlp=None) -> TrackResult. `geo_features` (and `color_features`)
-    are the compact [L+1, F] arrays aligned with `lset`. With `color_mode`
-    > 0 and `color_mlp` given the registration takes the uncached path;
-    calls without the colour arguments (the loop closure's) register on
-    geometry alone."""
+    color_mlp=None, state=None, lf=None) -> TrackResult. With a local set,
+    `geo_features` (and `color_features`) are the compact [L+1, F] arrays
+    aligned with `lset`; with `lset=None` they are the map's [C+1, F]
+    arrays and every iteration probes `state` under the LocalFilter `lf`.
+    With `color_mode` > 0 and `color_mlp` given the registration takes the
+    uncached path; calls without the colour arguments (the loop closure's)
+    register on geometry alone."""
 
     def weigh(pts, sdf, grad, nn_count, std, src_mask, gm_scale,
               color_w=None):
@@ -137,23 +141,28 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         return weigh(pts, sdf.detach(), grad, nn_count, std, src_mask,
                      gm_scale)
 
-    def quantities_color(geo_features, geo_mlp, pts, src_mask, anchor,
-                         lset, gm_scale, src_intensity, color_features,
-                         color_mlp, qperm):
-        """One probe of the local set serves the SDF and the colour
-        decode, and the gradients of both w.r.t. the points (the JAX
-        package probes twice; the probe is deterministic)."""
+    def quantities_uncached(geo_features, geo_mlp, pts, src_mask, anchor,
+                            gm_scale, lset, state, lf, qperm,
+                            src_intensity, color_features, color_mlp):
+        """One probe (of the local set, or of the map state) serves the SDF
+        decode and, with `color_mlp`, the colour decode, and the gradients
+        of both w.r.t. the points (the JAX package probes twice; the probe
+        is deterministic)."""
         p = pts.detach().requires_grad_(True)
         with torch.enable_grad():
             out = mq.query_decode(
-                geo_features, geo_mlp, p, qp, lset=lset, anchor=anchor,
-                with_std=not tp.weighted_first, qperm=qperm,
+                geo_features, geo_mlp, p, qp, lset=lset, state=state, lf=lf,
+                anchor=anchor, with_std=not tp.weighted_first, qperm=qperm,
                 color_features=color_features, color_mlp=color_mlp,
                 color_channel=tp.color_channel)
-            inten = intensity(out.color, tp.color_channel)
             (grad,) = torch.autograd.grad(out.sdf.sum(), p,
-                                          retain_graph=True)
-            (int_grad,) = torch.autograd.grad(inten.sum(), p)
+                                          retain_graph=color_mlp is not None)
+            if color_mlp is not None:
+                inten = intensity(out.color, tp.color_channel)
+                (int_grad,) = torch.autograd.grad(inten.sum(), p)
+        if color_mlp is None:
+            return weigh(pts, out.sdf.detach(), grad, out.nn_count,
+                         out.sdf_std, src_mask, gm_scale)
         int_pred = inten.detach()
         color_w = (torch.exp(-torch.abs(int_pred - src_intensity))
                    if tp.color_mode == 1 else None)
@@ -176,26 +185,29 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
     def track(geo_features, geo_mlp, src: torch.Tensor,
               src_mask: torch.Tensor, init_T: torch.Tensor,
               anchor: torch.Tensor, lset, loop_reg: bool = False,
-              src_intensity=None, color_features=None, color_mlp=None
-              ) -> TrackResult:
+              src_intensity=None, color_features=None, color_mlp=None,
+              state=None, lf=None) -> TrackResult:
         dev = src.device
         S = src.shape[0]
         src_count = torch.clamp(src_mask.sum(), min=1)
         min_ratio = 0.15 if loop_reg else tp.min_valid_ratio
         use_color = tp.color_mode > 0 and color_mlp is not None
 
-        # one Morton sort per track: the source moves rigidly by centimeters
-        # between GN iterations and the k-NN recomputes tile bounding boxes
-        # from the true points on every probe, so results stay exact
-        pad0 = (-S) % kj.TQ
-        q0 = torch.where(src_mask[:, None],
-                         src @ init_T[:3, :3].T + init_T[:3, 3] + anchor,
-                         torch.full_like(src, kj.PAD))
-        q0 = torch.cat([q0, torch.full((pad0, 3), kj.PAD, device=dev)])
-        qperm0 = kj._sort_by_morton(
-            q0, torch.cat([src_mask, torch.zeros(pad0, dtype=torch.bool,
-                                                 device=dev)]),
-            qp.resolution * 4.0)
+        qperm0 = None
+        if lset is not None:
+            # one Morton sort per track: the source moves rigidly by
+            # centimeters between GN iterations and the k-NN recomputes
+            # tile bounding boxes from the true points on every probe, so
+            # results stay exact
+            pad0 = (-S) % kj.TQ
+            q0 = torch.where(src_mask[:, None],
+                             src @ init_T[:3, :3].T + init_T[:3, 3] + anchor,
+                             torch.full_like(src, kj.PAD))
+            q0 = torch.cat([q0, torch.full((pad0, 3), kj.PAD, device=dev)])
+            qperm0 = kj._sort_by_morton(
+                q0, torch.cat([src_mask, torch.zeros(pad0, dtype=torch.bool,
+                                                     device=dev)]),
+                qp.resolution * 4.0)
 
         def probe(pts_abs):
             qn = npm.query_neighbors_join(
@@ -272,14 +284,17 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
                 iterations=torch.tensor(st["i"], device=dev), eigenvalues=eig,
                 weights=st["w"], valid_mask=st["vmask"], fail_code=fail)
 
-        if use_color:
-            # uncached: a probe and a decode of both heads every iteration
+        if use_color or lset is None:
+            # uncached: a probe and a decode every iteration (of both heads
+            # when tracking colour)
+            if not use_color:
+                color_mlp = color_features = None
             while st["i"] < tp.reg_iter_n and not bool(st["stop"]):
                 pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
-                gn_update(quantities_color(
-                    geo_features, geo_mlp, pts, src_mask, anchor, lset,
-                    gm_scale(st["i"]), src_intensity, color_features,
-                    color_mlp, qperm0))
+                gn_update(quantities_uncached(
+                    geo_features, geo_mlp, pts, src_mask, anchor,
+                    gm_scale(st["i"]), lset, state, lf, qperm0,
+                    src_intensity, color_features, color_mlp))
             return finish()
 
         # PROBED phase: a fresh candidate probe per GN step (the pose moves

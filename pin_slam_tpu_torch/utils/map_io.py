@@ -6,8 +6,8 @@ array keys (`positions`, `orientations`, `geo_features[:count + 1]`,
 `ts_create`, `ts_update`, `certainty`, `color_features[:count + 1]`), the
 decoders flattened to `mlp/<name>.w.<i>` / `mlp/<name>.b.<i>` and the same
 `meta_json` keys, so a map written by either package loads in the other.
-Loading rebuilds the hash table (`neural_points.rehash`); the port keeps no
-brick probe cache, so `with_btable` is accepted and ignored.
+Loading rebuilds the hash table and, with `with_btable`, the brick probe
+cache (`neural_points.rehash`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -96,7 +96,8 @@ def load_implicit_map(path: str, capacity: int = 0,
     """Load a saved map onto `device` (None: the card). Returns (state with
     the hash table rebuilt, decoders {name: {"w": [...], "b": [...]}}, meta
     dict). The capacity is the larger of `capacity` and the power of two
-    above count + 1."""
+    above count + 1. `with_btable=False` keeps no brick cache (the join and
+    cell probes never read it)."""
     device = resolve_device(device)
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta_json"]).decode())
@@ -106,7 +107,7 @@ def load_implicit_map(path: str, capacity: int = 0,
     color_on = bool(meta.get("color_on", False))
     state = npm.init_map_state(cap, int(meta["buffer_size"]),
                                int(meta["feature_dim"]), color_on=color_on,
-                               device=device)
+                               device=device, with_btable=with_btable)
 
     def put(dst: torch.Tensor, name: str):
         dst[:cnt] = torch.as_tensor(arrays[name][:cnt], device=device)

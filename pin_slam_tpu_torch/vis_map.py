@@ -33,7 +33,9 @@ def vis_pin_map(result_folder: str, mc_res_m: float = 0.2,
     from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher, write_ply
     from pin_slam_tpu_torch.utils.map_io import load_implicit_map
 
-    state, mlps, meta = load_implicit_map(path, device=device)
+    # the mesher's cell probe reads no brick cache
+    state, mlps, meta = load_implicit_map(path, device=device,
+                                          with_btable=False)
     cfg = Config()
     cfg.voxel_size_m = meta["voxel_size_m"]
     cfg.feature_dim = meta["feature_dim"]

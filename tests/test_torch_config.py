@@ -88,6 +88,47 @@ def test_pgo_section_turns_loop_closure_on():
         ROOT, "config/lidar_slam/run_kitti.yaml")).pgo_freq == 20
 
 
+OPTION_FIELDS = (
+    "incidence_label_on", "incidence_cos_floor", "incidence_mode",
+    "incidence_bins_az", "incidence_bins_el", "incidence_range_gate_m",
+    "consistency_loss_on", "weight_c", "consistency_count",
+    "consistency_range", "proj_correction_on", "use_gaussian_pe",
+    "pos_encoding_freq", "pos_encoding_band", "pos_input_dim",
+    "pos_encoding_base", "probe_mode")
+
+
+@pytest.mark.parametrize("field", OPTION_FIELDS)
+def test_option_field_kept_and_loaded_alike(field):
+    """Each field of the training options and the probe choice is a field
+    of the port's Config with the JAX package's default, and over every
+    YAML of the repo it loads to the JAX package's value."""
+    assert field in {f.name for f in dataclasses.fields(TConfig)}
+    assert getattr(TConfig().finalize(), field) == \
+        getattr(JConfig().finalize(), field)
+    for path in YAMLS:
+        t, j = TConfig().load(path), JConfig().load(path)
+        assert getattr(t, field) == getattr(j, field), path
+
+
+def test_option_keys_parse_alike(tmp_path):
+    """The YAML keys of the options parse into both packages alike, and the
+    consistency count follows bs / 4."""
+    path = tmp_path / "opts.yaml"
+    path.write_text(
+        "setting:\n  name: opts\n"
+        "sampler:\n  surface_sample_range_m: 0.3\n"
+        "  incidence_label_on: True\n  incidence_cos_floor: 0.2\n"
+        "loss:\n  consistency_loss_on: True\n"
+        "optimizer:\n  batch_size: 4096\n"
+        "tpu:\n  probe_mode: brick\n")
+    t, j = TConfig().load(str(path)), JConfig().load(str(path))
+    assert (t.incidence_label_on, t.incidence_cos_floor,
+            t.consistency_loss_on, t.probe_mode) == (True, 0.2, True,
+                                                      "brick")
+    assert t.consistency_count == 1024 == j.consistency_count
+    assert _fields(t) == _fields(j)
+
+
 def test_infer_bs_final_follows_bs():
     c = TConfig()
     c.bs = 16384
@@ -106,28 +147,35 @@ def test_probe_modes_accepted_by_query_params(mode):
 
 
 def test_brick_probe_is_refused():
+    """The brick probe, once refused, is accepted as the JAX package
+    accepts it; an unknown probe name is refused."""
     from pin_slam_tpu_torch.slam.map_query import make_query_params
 
     c = TConfig()
     c.probe_mode = "brick"
-    with pytest.raises(NotImplementedError, match="brick"):
+    assert make_query_params(c.finalize()).probe_mode == "brick"
+    c.probe_mode = "bricks"
+    with pytest.raises(ValueError, match="bricks"):
         make_query_params(c.finalize())
 
 
 def test_unported_yaml_features_are_refused():
-    """Every shipped YAML passes the port's check (colour and semantics are
-    ported); the flags of what is still not ported refuse a system."""
+    """Every shipped YAML passes the port's check; of the flags a YAML can
+    set, only data parallelism still refuses a system."""
     from pin_slam_tpu_torch.slam.system import (PinSLAMSystem,
                                                 _check_supported)
 
     assert len(YAMLS) == 20
     for path in YAMLS:
         _check_supported(TConfig().load(path))
-    for flag in ("incidence_label_on", "consistency_loss_on", "dp_on"):
+    for flag in ("incidence_label_on", "consistency_loss_on"):
         c = TConfig()
         setattr(c, flag, True)
-        with pytest.raises(NotImplementedError, match=flag):
-            PinSLAMSystem(c.finalize(), device="cpu")
+        _check_supported(c.finalize())
+    c = TConfig()
+    c.dp_on = True
+    with pytest.raises(NotImplementedError, match="dp_on"):
+        PinSLAMSystem(c.finalize(), device="cpu")
 
 
 COLOR_SEM_FIELDS = (

@@ -444,3 +444,47 @@ def test_color_training_step_repeats_bit_for_bit_on_the_card(cuda):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert bool(torch.isfinite(outs[0][3]).all())
+
+
+@pytest.mark.cuda
+def test_brick_cache_and_probe_match_the_cpu_on_the_card(cuda):
+    """The brick cache after inserts that alias bricks (a 2^14 table keeps
+    1024 bricks) and a rehash, and the brick probe with the time and radius
+    filters: bit-equal on the card and on the CPU (the repeated-slot
+    writes of `ops/scatter.set_last_` agree however `index_put_` orders
+    them)."""
+    from pin_slam_tpu_torch.models import neural_points as tnpm
+    from pin_slam_tpu_torch.ops import hash3d as th
+
+    rng = np.random.RandomState(0)
+    travel = torch.as_tensor(np.arange(16, dtype=np.float32) * 3.0)
+    scans = []
+    for shift in (0.0, 1.3):
+        p = np.zeros((6000, 3), np.float32)
+        p[:, :2] = rng.rand(6000, 2) * 24 - 12 + shift
+        p[:, 2] = 0.3 * np.sin(p[:, 0]) + rng.randn(6000) * 0.02
+        scans.append(p)
+    q = torch.as_tensor(scans[1][:2000] + rng.randn(2000, 3).astype(
+        np.float32) * 0.3)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = tnpm.init_map_state(8192, 1 << 14, 8, device=dev)
+        for ts, p in enumerate(scans):
+            s, _ = tnpm.insert_points(
+                s, torch.as_tensor(p, device=dev),
+                torch.ones(len(p), dtype=torch.bool, device=dev), ts * 9,
+                travel.to(dev), resolution=0.4, local_window_dist=20.0)
+        inserted = s.btable.clone()
+        s = tnpm.rehash(s, 9, resolution=0.4, use_mid_ts=True)
+        qn = tnpm.query_neighbors(
+            s, q.to(dev), offsets=th.neighbor_offsets(2, 0.2),
+            resolution=0.4, nn_k=8, max_dist2=th.max_valid_dist2(2, 0.4),
+            probe_mode="brick", time_filter=True, travel_dist=travel.to(dev),
+            cur_ts=9, local_window_dist=20.0, radius_filter=True,
+            sensor_pos=torch.tensor([1.0, -2.0, 0.0], device=dev),
+            local_map_radius=9.0, use_mid_ts=True)
+        out[str(dev)] = [t.cpu() for t in (inserted, s.btable, qn.idx,
+                                           qn.dist2, qn.valid, qn.nn_count)]
+    assert int(out["cpu"][5].sum()) > 1000
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)

@@ -83,6 +83,14 @@ def test_dataset_slice_modules_listed(mod):
     assert f"pin_slam_tpu_torch.{mod}" in _modules()
 
 
+@pytest.mark.parametrize("mod", ["ops.range_image", "models.pos_encoding"])
+def test_option_slice_modules_listed(mod):
+    """The modules of the training options (incidence labels, positional
+    encodings) are walked by the import checks here, so neither loads jax
+    or the JAX package."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
 def test_every_module_imports_without_pil_and_ros():
     """With PIL and sensor_msgs blocked, every module of the port still
     imports: the loaders import them where a frame or a message needs
@@ -180,15 +188,25 @@ def test_full_fp32_is_pinned():
 
 
 def test_unported_options_raise():
+    """Data parallelism is the one option the port still refuses; the cell
+    and brick probes, incidence labels, the consistency loss and the
+    projective correction build a system (a brick system keeps the brick
+    cache, the others the dump brick alone)."""
     from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.models.neural_points import has_btable
     from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
-    for opt in ("consistency_loss_on", "incidence_label_on"):
-        c = Config()
-        setattr(c, opt, True)
-        with pytest.raises(NotImplementedError, match=opt):
-            PinSLAMSystem(c.finalize(), device="cpu")
     c = Config()
-    c.probe_mode = "cells"
-    with pytest.raises(NotImplementedError, match="join"):
+    c.dp_on = True
+    with pytest.raises(NotImplementedError, match="dp_on"):
         PinSLAMSystem(c.finalize(), device="cpu")
+    for field, value in (("probe_mode", "cells"), ("probe_mode", "brick"),
+                         ("incidence_label_on", True),
+                         ("consistency_loss_on", True),
+                         ("proj_correction_on", True)):
+        c = Config()
+        c.map_capacity, c.buffer_size = 1 << 12, 1 << 14
+        c.pool_capacity = 1 << 12
+        setattr(c, field, value)
+        system = PinSLAMSystem(c.finalize(), device="cpu")
+        assert has_btable(system.state) == (value == "brick")

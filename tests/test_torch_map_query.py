@@ -5,7 +5,7 @@ the shared-candidate numerical gradient, the split-gradient row gather's
 backward against jax.grad, the top-k tie rule (exact), and the lset-less
 path through the cell-table probe (both `weighted_first` values, the fused
 decode route on and off, `query_sdf_and_grad`, the two numerical
-gradients)."""
+gradients) and through the brick probe."""
 
 import numpy as np
 import pytest
@@ -258,18 +258,44 @@ def _qps(weighted_first):
                 weighted_first=weighted_first))
 
 
-def test_probe_modes():
+def test_probe_modes(world):
+    """cells, auto (join) and brick resolve as named; an lset-less
+    query_decode under `brick` probes the brick cache and answers as the
+    JAX package's jitted one (both caches rebuilt from the same map): the
+    same neighbours and nn_count, the SDF to 1e-5."""
     c = _cfg(TConfig)
     c.probe_mode = "cells"
     assert tmq.make_query_params(c).probe_mode == "cells"
     c.probe_mode = "auto"
     assert tmq.make_query_params(c).probe_mode == "join"
     c.probe_mode = "brick"
-    with pytest.raises(NotImplementedError, match="brick"):
-        tmq.make_query_params(c)
+    tqp = tmq.make_query_params(c)
+    assert tqp.probe_mode == "brick"
     with pytest.raises(ValueError, match="local set or a map state"):
         tmq.query_decode(torch.zeros(3, F), None, torch.zeros(2, 3),
                          tmq.make_query_params(_cfg(TConfig)))
+
+    js, mlp, mlp_np, qpts = world
+    jc = _cfg(JConfig)
+    jc.probe_mode = "brick"
+    jqp = jmq.make_query_params(jc)
+    nb = jnpm._brick_count(js.table_size)
+    jb = jax.jit(lambda s: jnpm.rebuild_probe_cache(
+        s.replace(btable=jnpm._empty_btable(nb)), RES))(js)
+    ts = tnpm.rebuild_probe_cache(
+        _tstate(js).replace(btable=tnpm._empty_btable(nb)), RES)
+    jo = jax.jit(lambda s, q: jmq.query_decode(s, s.geo_features, mlp, q,
+                                               jqp))(jb, jnp.asarray(qpts))
+    to = tmq.query_decode(ts.geo_features,
+                          convert.mlp_from_numpy(mlp_np, device="cpu"),
+                          _t(qpts), tqp, state=ts)
+    assert np.asarray(jo.nn_count).max() >= 6
+    np.testing.assert_array_equal(to.nn_count.numpy(),
+                                  np.asarray(jo.nn_count))
+    np.testing.assert_array_equal(to.neighbors.idx.numpy(),
+                                  np.asarray(jo.neighbors.idx))
+    np.testing.assert_allclose(to.sdf.detach().numpy(), np.asarray(jo.sdf),
+                               atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("weighted_first,filtered", [

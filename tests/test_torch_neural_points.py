@@ -2,7 +2,9 @@
 against the JAX package on identical inputs: insert counts and every map
 row 1:1, the local-map mask, the join neighbor query, prune + rehash
 (all exact), IDW weights (<= 1e-6), the cell-table probe (idx, valid,
-nn_count equal, d2 <= 1e-6), and the loop-closure maintenance: elastic
+nn_count equal, d2 <= 1e-6), the brick probe (bit for bit, and against
+the cell probe within the JAX package's bounds; the brick cache itself in
+tests/test_torch_brick.py), and the loop-closure maintenance: elastic
 deformation (positions and quaternions <= 1e-6), capacity growth (bit for
 bit) and the two readers, gather_feature_vectors and queried_certainty
 (<= 1e-6)."""
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pin_slam_tpu.models import neural_points as jnpm
@@ -273,12 +276,33 @@ def test_query_neighbors_cells_empty_map():
 
 
 def test_query_neighbors_brick_is_refused(maps):
-    _, ts, _ = maps
-    with pytest.raises(NotImplementedError, match="part B"):
-        tnpm.query_neighbors(ts, torch.zeros(4, 3),
-                             offsets=th.neighbor_offsets(2, 0.2),
-                             resolution=RES, nn_k=6, max_dist2=1.0,
-                             probe_mode="brick")
+    """The brick probe, once refused here, answers as the JAX package's
+    jitted one: both brick caches rebuilt from the same map, the same idx,
+    valid, nn_count and ranking dist2 (bit for bit), and against the cell
+    probe within the JAX package's own bounds (tests/test_ops.py): nn_count
+    differs on < 15 % of the queries, the neighbour sets agree on > 90 %."""
+    js, ts, travel = maps
+    nb = jnpm._brick_count(B)
+    jb = jax.jit(lambda s: jnpm.rebuild_probe_cache(
+        s.replace(btable=jnpm._empty_btable(nb)), RES))(js)
+    tb = tnpm.rebuild_probe_cache(ts, RES)
+    assert tnpm.has_btable(tb)
+    q, _ = _scene(5, n=700, shift=0.2)
+    kw = dict(offsets=jh.neighbor_offsets(2, 0.2), resolution=RES, nn_k=6,
+              max_dist2=jh.max_valid_dist2(2, RES))
+    jq = jax.jit(lambda s, qq: jnpm.query_neighbors(
+        s, qq, probe_mode="brick", **kw))(jb, jnp.asarray(q))
+    tq = tnpm.query_neighbors(tb, torch.as_tensor(q), probe_mode="brick",
+                              **kw)
+    _assert_same_neighbors(tq, jq)
+    np.testing.assert_array_equal(tq.dist2.numpy(), np.asarray(jq.dist2))
+    tc = tnpm.query_neighbors(tb, torch.as_tensor(q), probe_mode="cells",
+                              **kw)
+    assert (tc.nn_count != tq.nn_count).float().mean() < 0.15
+    sets = [torch.sort(torch.where(r.valid, r.idx,
+                                   torch.full_like(r.idx, -1)), 1).values
+            for r in (tc, tq)]
+    assert (sets[0] == sets[1]).all(1).float().mean() > 0.9
 
 
 def _deform_inputs(maps, nT):
