@@ -233,13 +233,48 @@
    and the share at the floor) and the consistency term at the last
    training iteration.
 
+16. Data parallelism (`[dp]`, after `[mesh]`), DP_REPLICAS replicas on
+   the one card (`["cuda:0"] * 2`): the DP training loop on `[slice]`'s
+   final map (bench bs 16384 a replica, DP_ITERS iterations, the
+   whole-map route) against a sequential mimic of
+   tests/test_parallel.py's on the same per-replica draws (losses,
+   features and decoder to rtol 1e-4 / atol 1e-5, certainty 1e-4, update
+   timestamps equal), timed against one replica's loop at the same
+   effective batch; the sharded Mesher over `[mesh]`'s map bit-equal to
+   the unsharded one on every grid, with DP_REPLICAS fused-decode launches
+   a grid batch; a `dp_on` system over VIEWER_FRAMES bench frames with
+   one visible card: `mesh` None, poses and map bit-equal to `dp_on` off.
+17. The viewer (`[viewer]`): run_kitti.yaml through `python -m
+   pin_slam_tpu_torch.run <yaml> -o <dir> -v --range 0 10 1` (in-process)
+   over VIEWER_FRAMES of `[run]`'s swept frames on disk, with
+   mesh_default_on and, where matplotlib is installed, sdf_default_on
+   every VIEWER_FREQ frames (cuts: no shipped YAML turns these on; without
+   matplotlib the PNG renders and SDF slice files are left off and the
+   slice is computed through Mesher.sdf_slice after the run and checked
+   for finiteness). Fails unless every packet sent to the spawned viewer
+   holds no torch tensor, the viewer process exits on stop_viewer,
+   gui/latest.npz holds the last frame with the odometry of
+   odom_poses_kitti.txt, the local mesh at frame VIEWER_FREQ is non-empty
+   and a median <= MAX_MESH_MEDIAN_M from the scene,
+   vis/neural_points_pca.ply holds the map's count, the k-NN kernel
+   launched and the poses keep the drift gate.
+18. The ROS node (`[ros]`): `PINSLAMRosNode` with run_ncd_128_s.yaml fed
+   the first ROS_FRAMES PointCloud2 messages of `[bag]`'s bag through its
+   frame callback, under stand-in rospy, nav_msgs, geometry_msgs,
+   sensor_msgs, tf2_ros and std_srvs modules defined here (the card's
+   machine has no ROS). Fails unless every message is tracked, each
+   published Odometry is the system's pose with `np_rotmat_to_quat`'s
+   quaternion, every pose keeps the drift gate against the mid-scan truth,
+   the k-NN kernel launched and the save_results service writes a
+   pin_map.npz that `load_implicit_map` reads back bit-equal.
+
 The last two lines of stdout are a JSON object with every kernel's numbers
 and {"ok": true, "device": {...}}. Exits non-zero, printing neither, when no
 CUDA device is present or any phase fails. `--only color,semantic` (any of
-slice, mesh, probes, options, loop, ba, dynamic, color, semantic, run,
-localize, bag; localize runs run first) runs the build, the kernel checks
-and the phases named, and prints neither line: a quicker check while
-working.
+slice, mesh, dp, probes, options, loop, ba, dynamic, color, semantic, run,
+localize, viewer, bag, ros; localize runs run first, dp slice and mesh)
+runs the build, the kernel checks and the phases named, and prints neither
+line: a quicker check while working.
 """
 
 import argparse
@@ -307,6 +342,11 @@ BAG_TOPIC = "/os_cloud_node/points"   # the ouster_ros package's topic
 OS_ROWS, OS_COLS = 128, 1024   # Ouster OS0-128 in its 1024 x 10 Hz mode
 SCAN_NS = 100_000_000
 BAG_ROOM_HALF_HEIGHT_M = 6.0   # make_ncd_sequence's floor and ceiling
+VIEWER_FRAMES = 10             # [viewer]'s frames of [run]'s dataset
+VIEWER_FREQ = 5                # its local-mesh and SDF-slice cadence
+DP_REPLICAS = 2                # [dp]: replicas on the one card
+DP_ITERS = 3
+ROS_FRAMES = 5                 # [ros]: messages of [bag]'s bag
 
 
 def log(*a):
@@ -727,8 +767,6 @@ def phase_slice(frames, poses, dev):
     # frame on synthetic scans (VERDICT.md, "early-map z-sink"), so 20
     # frames may drift up to 1.8 m without a loss of track.
     check_drift(err)
-    del system
-    torch.cuda.empty_cache()
 
     synced = PinSLAMSystem(bench_config(Config), device=dev,
                            sync_timing=True)
@@ -740,13 +778,13 @@ def phase_slice(frames, poses, dev):
         f"{1 / synced_s:.3f} fps; stage medians: " + " ".join(
             f"{l}={v:.1f}ms" for l, v in zip(labels, stages)))
     return launches, dict(fps=1 / steady_s, ms=steady_s * 1e3, ate_m=ate,
-                          stages=stages)
+                          stages=stages, system=system)
 
 
 def phase_mesh(frames, poses, scene_sdf, dev):
     """Track+map with weighted_first=False, then mesh the map through the
-    fused decode kernel. Returns both kernels' launch counts on this path
-    and the mesh figures."""
+    fused decode kernel. Returns both kernels' launch counts on this path,
+    the system and its mesher."""
     import torch
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.models import neural_points as npm
@@ -868,7 +906,7 @@ def phase_mesh(frames, poses, scene_sdf, dev):
         raise AssertionError(
             f"mesh samples lie a median {median:.3f} m from the true "
             f"surface, past {MAX_MESH_MEDIAN_M} m")
-    return knn_launches, fd_launches
+    return knn_launches, fd_launches, system, mesher
 
 
 def quat_to_rotmat(q):
@@ -2291,7 +2329,7 @@ def phase_bag(grids, seq, root):
     import torch
     from pin_slam_tpu_torch import run as trun
     from pin_slam_tpu_torch.config import Config
-    from pin_slam_tpu_torch.dataset import mcap1, rosbag1
+    from pin_slam_tpu_torch.dataset import mcap1
     from pin_slam_tpu_torch.dataset.dataloaders.mcap import McapDataloader
     from pin_slam_tpu_torch.dataset.dataloaders.rosbag import RosbagDataset
     from pin_slam_tpu_torch.dataset.slam_dataset import SLAMDataset
@@ -2303,16 +2341,7 @@ def phase_bag(grids, seq, root):
     cfg_path = os.path.join(ROOT, "config", "lidar_slam",
                             "run_ncd_128_s.yaml")
     bag_dir = os.path.join(root, "bag")
-    os.makedirs(bag_dir)
-    t0 = time.time()
-    rosbag1.write_bag1(os.path.join(bag_dir, "ncd_walk.bag"),
-                       [ouster_cloud(*g) for g in grids], topic=BAG_TOPIC)
     bag_mb = os.path.getsize(os.path.join(bag_dir, "ncd_walk.bag")) / 2**20
-    log(f"[bag] wrote {n} organised {grids[0][0].shape[0]} x "
-        f"{grids[0][0].shape[1]} Ouster clouds (point_step "
-        f"{OUSTER_POINT_STEP}, {int((grids[0][0] != 0).any(-1).sum())} "
-        f"returns in frame 0) on {BAG_TOPIC}: {bag_mb:.1f} MiB in "
-        f"{time.time() - t0:.1f} s")
     # the truth: the mid-scan poses, in the frame of the first scan (the
     # run starts at the identity; a bag carries no ground truth)
     gt_abs = mid_scan_poses(seq)[:n]
@@ -2460,6 +2489,26 @@ def phase_bag(grids, seq, root):
         read_ms=float(np.median(spy.read_s) * 1e3),
         deskew_ms=float(np.median(spy.deskew_s) * 1e3), bag_mib=bag_mb,
         wall_s=wall, peak_gib=peak)
+
+
+def write_ncd_bag(grids, bag_dir):
+    """The `[bag]` walk's organised Ouster clouds as one ROS1 bag on
+    BAG_TOPIC under `bag_dir`, written by the port's `write_bag1`; returns
+    its path."""
+    from pin_slam_tpu_torch.dataset import rosbag1
+
+    os.makedirs(bag_dir)
+    path = os.path.join(bag_dir, "ncd_walk.bag")
+    t0 = time.time()
+    rosbag1.write_bag1(path, [ouster_cloud(*g) for g in grids],
+                       topic=BAG_TOPIC)
+    log(f"[bag] wrote {len(grids)} organised {grids[0][0].shape[0]} x "
+        f"{grids[0][0].shape[1]} Ouster clouds (point_step "
+        f"{OUSTER_POINT_STEP}, {int((grids[0][0] != 0).any(-1).sum())} "
+        f"returns in frame 0) on {BAG_TOPIC}: "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB in "
+        f"{time.time() - t0:.1f} s")
+    return path
 
 
 def probes_config(Config, mode, **options):
@@ -2728,6 +2777,548 @@ def phase_options(frames, poses, dev):
     return res["knn"], res["fd"], res
 
 
+def phase_dp(slice_system, mesh_system, mesh_mesher, frames, poses, dev):
+    """Data parallelism on the one card, with DP_REPLICAS replicas on it
+    (`["cuda:0"] * 2`, parallel/dp.make_mesh):
+    1. the DP training loop (`make_train_loop(mesh=)`, the whole-map route:
+       bench bs 16384 a replica, DP_ITERS iterations, every tensor trained)
+       on `[slice]`'s final map, held against a sequential mimic of
+       tests/test_parallel.py's: each replica's gradient on its own draws,
+       their average, one Adam step (losses, features and decoder to rtol
+       1e-4 / atol 1e-5, certainty to 1e-4, update timestamps equal), and
+       timed against one replica's loop at the same effective batch;
+    2. the sharded Mesher over `[mesh]`'s map: every grid of its mesh
+       equal, bit for bit, to the unsharded mesher's, the fused decode
+       launched DP_REPLICAS times a grid batch;
+    3. a `dp_on` system over VIEWER_FRAMES bench frames with one visible
+       card: `mesh` None, its poses and map bit-equal to a system without
+       `dp_on`.
+    Returns both kernels' launches on this path and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.parallel import dp
+    from pin_slam_tpu_torch.slam import mapper as mp
+    from pin_slam_tpu_torch.slam.mesher import Mesher
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+
+    reps = dp.make_mesh(devices=[dev] * DP_REPLICAS)
+    sysm, c = slice_system, slice_system.config
+    R = len(reps)
+    kw = sysm._loss_kwargs
+    lf = sysm._lf(sysm.cur_frame - 1)
+    pool = sysm.pool
+    use_new = torch.tensor(False, device=dev)
+    draws = [mp.draw_train_indices(
+        torch.Generator(device=dev).manual_seed(100 + r), pool,
+        n_iters=DP_ITERS, bs=c.bs, bs_new=0, subset_hist=0, whole_map=True)
+        for r in range(R)]
+
+    def fresh():
+        st = _clone_fields(sysm.state)
+        return {"geo_features": st.geo_features,
+                "geo_mlp": {k: [t.clone() for t in v] for k, v in
+                            sysm.params["geo_mlp"].items()}}, st
+
+    kj.LAUNCHES = 0
+    fd.LAUNCHES = 0
+    loop = mp.make_train_loop(sysm.qp, lr=c.lr, adam_eps=c.adam_eps,
+                              n_iters=DP_ITERS, bs=c.bs, bs_new=0,
+                              train_decoder=True, loss_kwargs=kw, mesh=reps)
+    p_dp, st_dp = fresh()
+    p_dp, st_dp, losses_dp = loop(p_dp, st_dp, pool, None, use_new, None,
+                                  draws=draws, lf=lf)
+    # the sequential mimic: R gradients on the replicas' draws, averaged,
+    # one Adam step; each replica's certainty added in turn
+    p_m, st_m = fresh()
+    feats = st_m.geo_features.detach().clone().requires_grad_(True)
+    mlp = {k: [t.clone().requires_grad_(True) for t in v]
+           for k, v in p_m["geo_mlp"].items()}
+    leaves = [feats] + mlp["w"] + mlp["b"]
+    opt = torch.optim.Adam(leaves, lr=c.lr, betas=(0.9, 0.999),
+                           eps=c.adam_eps)
+    losses_m = []
+    for i in range(DP_ITERS):
+        gsum, lsum = None, 0.0
+        for r in range(R):
+            idx = draws[r]["hist"][i]
+            batch = {"coord": pool.coord[idx],
+                     "sdf_label": pool.sdf_label[idx],
+                     "weight": pool.weight[idx], "ts": pool.ts[idx]}
+            loss, aux = mp.mapping_loss(feats, mlp, batch, idx < pool.count,
+                                        None, None, None, sysm.qp,
+                                        state=st_m, lf=lf, **kw)
+            g = torch.autograd.grad(loss, leaves)
+            gsum = list(g) if gsum is None else [a + b for a, b in
+                                                 zip(gsum, g)]
+            lsum += float(loss.detach())
+            with torch.no_grad():
+                npm.accumulate_certainty(st_m, aux["qn"], aux["w"].detach(),
+                                         aux["ts"])
+        for leaf, g in zip(leaves, gsum):
+            leaf.grad = g / R
+        opt.step()
+        losses_m.append(lsum / R)
+    torch.cuda.synchronize()
+
+    def close(a, b, rtol, atol):
+        a, b = (torch.as_tensor(x, device=dev).float() for x in (a, b))
+        excess = (a - b).abs() - (atol + rtol * b.abs())
+        return float(excess.max()) <= 0.0, float((a - b).abs().max())
+
+    checks = {"losses": close(losses_dp, losses_m, 1e-4, 1e-5),
+              "features": close(st_dp.geo_features, feats.detach(), 1e-4,
+                                1e-5),
+              "decoder": min((close(a, b.detach(), 1e-4, 1e-5) for a, b in
+                              zip(p_dp["geo_mlp"]["w"] + p_dp["geo_mlp"]["b"],
+                                  mlp["w"] + mlp["b"])),
+                             key=lambda t: t[0]),
+              "certainty": close(st_dp.certainty, st_m.certainty, 1e-4,
+                                 1e-4),
+              "ts_update": (bool(torch.equal(st_dp.ts_update,
+                                             st_m.ts_update)), 0.0)}
+    log(f"[dp] DP loop, {R} replicas on {dev} x {c.bs} samples, "
+        f"{DP_ITERS} iterations, whole-map route, losses "
+        f"{[round(float(v), 6) for v in losses_dp]}; against the "
+        f"sequential mimic: " + ", ".join(
+            f"{k} {'ok' if ok else 'DIFFERS'} (max |diff| {d:.3g})"
+            for k, (ok, d) in checks.items()))
+    if not all(ok for ok, _ in checks.values()):
+        raise AssertionError(f"[dp] the DP loop departs from the mimic: "
+                             f"{checks}")
+    single = mp.make_train_loop(sysm.qp, lr=c.lr, adam_eps=c.adam_eps,
+                                n_iters=DP_ITERS, bs=R * c.bs, bs_new=0,
+                                train_decoder=True, loss_kwargs=kw)
+    draws1 = mp.draw_train_indices(
+        torch.Generator(device=dev).manual_seed(99), pool,
+        n_iters=DP_ITERS, bs=R * c.bs, bs_new=0, subset_hist=0,
+        whole_map=True)
+    p_t, st_t = fresh()
+    dp_ms = cuda_time_ms(lambda: loop(p_t, st_t, pool, None, use_new, None,
+                                      draws=draws, lf=lf), 3)
+    one_ms = cuda_time_ms(lambda: single(p_t, st_t, pool, None, use_new,
+                                         None, draws=draws1, lf=lf), 3)
+    log(f"[dp] a {DP_ITERS}-iteration training run (CUDA events around the "
+        f"call): {R} replicas x {c.bs} samples {dp_ms:.2f} ms, one replica "
+        f"x {R * c.bs} samples {one_ms:.2f} ms")
+    del p_dp, st_dp, p_m, st_m, feats, mlp, leaves, opt, p_t, st_t
+
+    # the sharded mesher over [mesh]'s map, grid by grid
+    ms = mesh_system
+    args = (ms.state, ms.params["geo_features"], ms.params["geo_mlp"])
+    plain = Mesher(ms.qp, mesh_mesher.mc)
+    sharded = Mesher(ms.qp, mesh_mesher.mc, mesh=reps)
+    cnt = int(ms.state.count)
+    pos = ms.state.positions[:cnt]
+    chunks = plain.split_chunks(pos.amin(0).cpu().numpy(),
+                                pos.amax(0).cpu().numpy(), plain.mc.chunk_m)
+    same, n_grid, t_plain, t_sharded, fd_sharded = True, 0, 0.0, 0.0, 0
+    for lo, hi in chunks:
+        origin, dims = plain.aabb_grid(lo, hi)
+        n_grid += int(np.prod(dims))
+        t0 = time.time()
+        a = plain.query_sdf_grid(*args, origin, dims)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        f0 = fd.LAUNCHES
+        b = sharded.query_sdf_grid(*args, origin, dims)
+        torch.cuda.synchronize()
+        fd_sharded += fd.LAUNCHES - f0
+        t_plain += t1 - t0
+        t_sharded += time.time() - t1
+        same &= all(np.array_equal(x, y) for x, y in zip(a, b))
+    log(f"[dp] sharded mesher over [mesh]'s map ({cnt} points, "
+        f"{len(chunks)} chunks, {n_grid} grid points): {sharded.n_batches} "
+        f"grid batches, {fd_sharded} fused_decode launches "
+        f"({R} a batch: {fd_sharded == R * sharded.n_batches}), grids "
+        f"bit-equal to the unsharded mesher's: {same}; query and pull "
+        f"{t_sharded:.3f} s sharded, {t_plain:.3f} s unsharded")
+    if not same:
+        raise AssertionError("[dp] the sharded mesher's grid differs from "
+                             "the unsharded one")
+    if sharded.decode_route != "fused_decode" \
+            or fd_sharded != R * sharded.n_batches:
+        raise AssertionError(f"[dp] {fd_sharded} fused decode launches for "
+                             f"{sharded.n_batches} batches of {R} replicas")
+    del plain, sharded
+
+    # dp_on with one visible card is the single-card run
+    runs = {}
+    for on in (True, False):
+        cfg = bench_config(Config)
+        cfg.dp_on = on
+        system = PinSLAMSystem(cfg, device=dev)
+        system.set_gt_poses(poses)
+        est = [system.process_frame(f, frames[f], next_points=frames[f + 1])
+               for f in range(VIEWER_FRAMES)]
+        runs[on] = (system, np.stack(est))
+    (s_on, est_on), (s_off, est_off) = runs[True], runs[False]
+    cnt = int(s_on.state.count)
+    same_map = cnt == int(s_off.state.count) and all(
+        torch.equal(getattr(s_on.state, f)[:cnt], getattr(s_off.state, f)[:cnt])
+        for f in ("positions", "geo_features", "certainty", "ts_update")) \
+        and all(torch.equal(a, b) for a, b in zip(
+            s_on.params["geo_mlp"]["w"] + s_on.params["geo_mlp"]["b"],
+            s_off.params["geo_mlp"]["w"] + s_off.params["geo_mlp"]["b"]))
+    knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    log(f"[dp] dp_on with {torch.cuda.device_count()} visible card(s) over "
+        f"{VIEWER_FRAMES} bench frames: mesh {s_on.mesh}, poses bit-equal "
+        f"to dp_on off: {np.array_equal(est_on, est_off)}, map and decoder "
+        f"bit-equal: {same_map} ({cnt} points); path launches knn_join "
+        f"{knn_launches}, fused_decode {fd_launches}")
+    if s_on.mesh is not None or not np.array_equal(est_on, est_off) \
+            or not same_map:
+        raise AssertionError("[dp] dp_on on one card is not the single-card "
+                             "run")
+    return knn_launches, fd_launches, dict(dp_ms=dp_ms, one_ms=one_ms,
+                                           checks=checks)
+
+
+def viewer_yaml(root):
+    """run_yaml's run_kitti.yaml with the file visualizer on (its local
+    meshes and, where matplotlib is installed, its SDF slices every
+    VIEWER_FREQ frames)."""
+    import yaml
+    path = run_yaml(root, "viewer")
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg.setdefault("eval", {}).update(
+        mesh_default_on=True, mesh_freq_frame=VIEWER_FREQ,
+        sdf_default_on=has_matplotlib(), sdf_freq_frame=VIEWER_FREQ)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def has_matplotlib():
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def phase_viewer(frames, seq, root):
+    """run_kitti.yaml through the entry point with the viewer: `python -m
+    pin_slam_tpu_torch.run <yaml> -o <dir> -v --range 0 10 1` over `[run]`'s
+    swept frames on disk, mesh_default_on and (with matplotlib)
+    sdf_default_on every VIEWER_FREQ frames. Returns both kernels'
+    launches and the figures."""
+    import torch
+    import pin_slam_tpu_torch.gui as tgui
+    from pin_slam_tpu_torch import run as trun
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+
+    n = len(frames)
+    gt = mid_scan_poses(seq)[:n]
+    write_run_dataset(root, frames, gt)
+    mpl = has_matplotlib()
+    cfg_path = viewer_yaml(root)
+    out_dir = os.path.join(root, "viewer_out")
+    seen = {"procs": [], "packets": []}
+    start = tgui.start_viewer
+
+    def start_checked(*a, **k):
+        proc, q_m2v, q_v2m = start(*a, **k)
+        seen["procs"].append(proc)
+
+        class Checked:
+            def put(self, pkt):
+                seen["packets"].append(packet_host_only(pkt))
+                q_m2v.put(pkt)
+        return proc, Checked(), q_v2m
+
+    log(f"[viewer] matplotlib {'installed' if mpl else 'not installed'}: "
+        + ("PNG renders and SDF slices on" if mpl else
+           "the viewer writes gui/latest.npz without PNG renders, "
+           "sdf_default_on is left off; the SDF slice is checked through "
+           "Mesher.sdf_slice after the run"))
+    aabb = Mesher.recon_aabb_mesh
+
+    def recon_aabb(mesher, *a, **k):
+        seen.setdefault("meshers", []).append(mesher)
+        return aabb(mesher, *a, **k)
+
+    t0 = time.time()
+    tgui.start_viewer = start_checked
+    Mesher.recon_aabb_mesh = recon_aabb
+    try:
+        with SystemSpy() as spy:
+            kj.LAUNCHES = 0
+            fd.LAUNCHES = 0
+            trun.main([cfg_path, "-o", out_dir, "-v", "--range", "0",
+                       str(n), "1"])
+            knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+    finally:
+        tgui.start_viewer = start
+        Mesher.recon_aabb_mesh = aabb
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    vm = seen["meshers"][0]
+    run_dir = os.path.join(out_dir, sorted(os.listdir(out_dir))[0])
+    system = spy.system
+    proc, = seen["procs"]
+    latest = np.load(os.path.join(run_dir, "gui", "latest.npz"))
+    odom, err = pose_errors(os.path.join(run_dir, "odom_poses_kitti.txt"),
+                            gt)
+    vis = sorted(os.listdir(os.path.join(run_dir, "vis")))
+    gui = sorted(os.listdir(os.path.join(run_dir, "gui")))
+    mesh_path = os.path.join(run_dir, "vis", f"mesh_{VIEWER_FREQ:05d}.ply")
+    from pin_slam_tpu_torch.dataset.io import read_ply
+    verts = read_ply_vertices(mesh_path) if os.path.exists(mesh_path) \
+        else np.zeros((0, 3))
+    med = float(np.median(np.abs(seq.scene_sdf(verts.astype(np.float64))))) \
+        if len(verts) else float("inf")
+    npts = len(read_ply(os.path.join(run_dir, "vis",
+                                     "neural_points_pca.ply"))["x"])
+    steady = np.asarray(spy.secs[1:]) * 1e3
+    log(f"[viewer] run_kitti.yaml with -v through the entry point: {n} "
+        f"frames in {wall:.1f} s (the run, the local meshes, the viewer's "
+        f"start and stop); process_frame median {np.median(steady):.1f} ms; "
+        f"packets sent {len(seen['packets'])} (frames "
+        f"{[p for p in seen['packets'] if p is not None]}), all numpy; viewer "
+        f"process alive after stop_viewer: {proc.is_alive()} (exit code "
+        f"{proc.exitcode}); latest.npz frame {int(latest['frame_id'])}; "
+        f"vis/ {vis}; gui/ {gui}; knn_join launches {knn_launches}, "
+        f"fused_decode {fd_launches}; local mesh at frame {VIEWER_FREQ}: "
+        f"{vm.n_batches} grid batches of <= {vm.mc.infer_bs}, query "
+        f"{vm.query_seconds:.2f} s, marching {vm.marching_seconds:.2f} s, "
+        f"{len(verts)} vertices, median distance to the scene {med:.4f} m "
+        f"(bound {MAX_MESH_MEDIAN_M} m); neural_points_pca.ply {npts} points,"
+        f" map {int(system.state.count)}")
+    if proc.is_alive():
+        raise AssertionError("[viewer] the viewer process outlived "
+                             "stop_viewer")
+    if int(latest["frame_id"]) != n - 1 or not np.allclose(
+            latest["odom_poses"], odom, atol=1e-6, rtol=0):
+        raise AssertionError("[viewer] latest.npz does not hold the last "
+                             "frame's odometry")
+    if len(verts) == 0 or med > MAX_MESH_MEDIAN_M:
+        raise AssertionError(f"[viewer] local mesh of {len(verts)} vertices,"
+                             f" median {med} m off the scene")
+    if npts != int(system.state.count):
+        raise AssertionError(f"[viewer] neural_points_pca.ply holds {npts} "
+                             f"points, the map {int(system.state.count)}")
+    if knn_launches <= 0:
+        raise AssertionError("[viewer] the run never launched the knn_join "
+                             "kernel")
+    check_drift(err, 0.09 * n)
+    if mpl:
+        want_png = [f"sdf_slice_{f:05d}.png" for f in range(0, n,
+                                                             VIEWER_FREQ)]
+        if not set(want_png) <= set(vis) or not any(
+                g.startswith("view_") for g in gui):
+            raise AssertionError(f"[viewer] PNGs missing: {vis}, {gui}")
+    else:
+        c = system.config
+        mesher = Mesher(system.qp, MeshConfig(mc_res_m=c.mc_res_m,
+                                              infer_bs=c.infer_bs_final))
+        center = system.cur_pose_ref[:3, 3]
+        xs, ys, sdf = mesher.sdf_slice(
+            system.state, system.params["geo_features"],
+            system.params["geo_mlp"], center, extent=20.0,
+            height=center[2] + c.sdf_slice_height, res=c.vis_sdf_res_m)
+        log(f"[viewer] SDF slice through Mesher.sdf_slice: {sdf.shape}, "
+            f"finite {bool(np.isfinite(sdf).all())}, range "
+            f"{sdf.min():.3f} .. {sdf.max():.3f} m")
+        if not np.isfinite(sdf).all():
+            raise AssertionError("[viewer] the SDF slice is not finite")
+    return knn_launches, fd_launches, dict(
+        wall_s=wall, ms=float(np.median(steady)), mesh_vertices=len(verts),
+        mesh_median_m=med, matplotlib=mpl)
+
+
+def packet_host_only(pkt):
+    """The packet's frame id, after checking that no field holds a torch
+    tensor (a pickled one would import torch in the viewer process)."""
+    import torch
+
+    def walk(obj, path):
+        if isinstance(obj, torch.Tensor):
+            raise AssertionError(f"[viewer] {path} is a torch tensor")
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{path}[{k!r}]")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(v, f"{path}[{i}]")
+        elif hasattr(obj, "__dict__"):
+            for k, v in vars(obj).items():
+                walk(v, f"{path}.{k}")
+    walk(pkt, "packet")
+    return pkt.frame_id
+
+
+class RosMsg:
+    """A ROS message stand-in: keyword fields, nested fields made on first
+    access."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        v = RosMsg()
+        setattr(self, name, v)
+        return v
+
+
+def ros_stub_modules(log_):
+    """Stand-ins for rospy, nav_msgs, geometry_msgs, sensor_msgs, tf2_ros
+    and std_srvs (the card's machine has no ROS): publishers, the TF
+    broadcaster and the services record into `log_`, the subscriber's
+    callback lands in log_["callback"]."""
+    import types
+    rospy = types.ModuleType("rospy")
+
+    class Publisher:
+        def __init__(self, name, kind, queue_size=1):
+            self.name = name
+            log_.setdefault(name, [])
+
+        def publish(self, msg):
+            log_[self.name].append(msg)
+
+    def subscriber(topic, kind, callback, queue_size=1):
+        log_["callback"] = callback
+
+    def service(name, kind, handler):
+        log_.setdefault("services", {})[name] = handler
+
+    rospy.init_node = lambda name: None
+    rospy.Publisher = Publisher
+    rospy.Subscriber = subscriber
+    rospy.Service = service
+    rospy.Timer = lambda period, fn: None
+    rospy.Duration = lambda sec: sec
+    rospy.Time = types.SimpleNamespace(now=lambda: 0.0)
+    rospy.signal_shutdown = lambda why: None
+    rospy.spin = lambda: None
+
+    class Broadcaster:
+        def sendTransform(self, t):
+            log_.setdefault("tf", []).append(t)
+
+    tf2 = types.ModuleType("tf2_ros")
+    tf2.TransformBroadcaster = Broadcaster
+    mods = {"rospy": rospy, "tf2_ros": tf2}
+    for pkg, sub, kinds in (
+            ("nav_msgs", "msg", ("Odometry", "Path")),
+            ("geometry_msgs", "msg", ("PoseStamped", "TransformStamped")),
+            ("sensor_msgs", "msg", ("PointCloud2", "PointField")),
+            ("std_srvs", "srv", ("Trigger", "TriggerResponse"))):
+        mod = types.ModuleType(f"{pkg}.{sub}")
+        for k in kinds:
+            setattr(mod, k, type(k, (RosMsg,), {}))
+        mods[pkg] = types.ModuleType(pkg)
+        setattr(mods[pkg], sub, mod)
+        mods[f"{pkg}.{sub}"] = mod
+    return mods
+
+
+def phase_ros(bag_path, seq, root, dev):
+    """The ROS node (`PINSLAMRosNode`, config/lidar_slam/run_ncd_128_s.yaml
+    as shipped) fed the first ROS_FRAMES PointCloud2 messages of `[bag]`'s
+    bag through its frame callback, under the stand-in ROS modules of
+    `ros_stub_modules`. Returns both kernels' launches and the figures."""
+    import torch
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.dataset import rosbag1
+    from pin_slam_tpu_torch.ops import fused_decode as fd
+    from pin_slam_tpu_torch.ops import knn_join as kj
+    from pin_slam_tpu_torch.ops.transforms import np_rotmat_to_quat
+    from pin_slam_tpu_torch.utils.map_io import load_implicit_map
+
+    reader = rosbag1.Bag1Reader(bag_path)
+    msgs = []
+    for _, raw in reader.iter_topic(BAG_TOPIC):
+        msgs.append(rosbag1.deserialize_pointcloud2(raw))
+        if len(msgs) == ROS_FRAMES:
+            break
+    gt_abs = mid_scan_poses(seq)[:ROS_FRAMES]
+    gt = np.linalg.inv(gt_abs[0]) @ gt_abs
+    log_ = {}
+    stubs = ros_stub_modules(log_)
+    saved = {k: sys.modules.get(k) for k in stubs}
+    sys.modules.update(stubs)
+    try:
+        from pin_slam_tpu_torch.pin_slam_ros import PINSLAMRosNode
+        cfg = Config().load(os.path.join(ROOT, "config", "lidar_slam",
+                                         "run_ncd_128_s.yaml"))
+        cfg.run_path = os.path.join(root, "ros_out")
+        torch.cuda.reset_peak_memory_stats()
+        node = PINSLAMRosNode(cfg, BAG_TOPIC)
+        poses, secs, lost = [], [], []
+        kj.LAUNCHES = 0
+        fd.LAUNCHES = 0
+        for i, m in enumerate(msgs):
+            t0 = time.time()
+            log_["callback"](m)
+            secs.append(time.time() - t0)
+            poses.append(node.system.cur_pose_ref.copy())
+            if i > 0 and not bool(node.system.last_tracking.valid):
+                lost.append(i)
+        knn_launches, fd_launches = kj.LAUNCHES, fd.LAUNCHES
+        res = log_["services"]["~save_results"](None)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    poses = np.stack(poses)
+    err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+    odom = log_["~odometry"]
+    same_pose = len(odom) == ROS_FRAMES and all(
+        (o.pose.pose.position.x, o.pose.pose.position.y,
+         o.pose.pose.position.z) == tuple(T[:3, 3])
+        and [o.pose.pose.orientation.w, o.pose.pose.orientation.x,
+             o.pose.pose.orientation.y, o.pose.pose.orientation.z]
+        == [float(v) for v in np_rotmat_to_quat(T[:3, :3])]
+        for o, T in zip(odom, poses))
+    state = node.system.state
+    cnt = int(state.count)
+    st, dec, _ = load_implicit_map(os.path.join(cfg.run_path, "pin_map.npz"),
+                                   device=dev)
+    same_map = int(st.count) == cnt and all(
+        torch.equal(getattr(st, f)[:cnt], getattr(state, f)[:cnt])
+        for f in ("positions", "orientations", "geo_features", "ts_create",
+                  "ts_update", "certainty")) and all(
+        torch.equal(a, b) for a, b in zip(
+            dec["geo_mlp"]["w"] + dec["geo_mlp"]["b"],
+            node.system.params["geo_mlp"]["w"]
+            + node.system.params["geo_mlp"]["b"]))
+    log(f"[ros] PINSLAMRosNode with run_ncd_128_s.yaml, {ROS_FRAMES} "
+        f"PointCloud2 messages of the bag through frame_callback: "
+        f"{np.median(secs[1:]) * 1e3:.1f} ms a message (median after the "
+        f"first); published {len(odom)} Odometry, {len(log_['~path'])} "
+        f"Path, {len(log_.get('tf', []))} TF, "
+        f"{len(log_['~neural_points'])} map and {len(log_['~frame'])} "
+        f"frame clouds; Odometry = the system's pose and np_rotmat_to_quat: "
+        f"{same_pose}; pose error against the mid-scan truth max "
+        f"{err.max() * 100:.2f} cm (gate {0.09 * ROS_FRAMES * 100:.0f} cm);"
+        f" knn_join launches {knn_launches}, fused_decode {fd_launches}; "
+        f"save_results: {res.success}, pin_map.npz reads back bit-equal: "
+        f"{same_map} ({cnt} points); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if lost:
+        raise AssertionError(f"[ros] the tracker lost track in messages "
+                             f"{lost}")
+    if not same_pose:
+        raise AssertionError("[ros] a published Odometry is not the "
+                             "system's pose")
+    check_drift(err, 0.09 * ROS_FRAMES)
+    if knn_launches <= 0:
+        raise AssertionError("[ros] the node never launched the knn_join "
+                             "kernel")
+    if not (res.success and same_map):
+        raise AssertionError("[ros] save_results did not write the map")
+    return knn_launches, fd_launches, dict(
+        ms=float(np.median(secs[1:]) * 1e3), max_err_m=float(err.max()))
+
+
 def make_frames(pool, fn, args):
     """fn over args in the pool's spawned worker processes (frame i of a
     sequence)."""
@@ -2743,10 +3334,10 @@ def make_frames(pool, fn, args):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (slice, mesh, probes, "
+                    help="comma-separated phases (slice, mesh, dp, probes, "
                     "options, loop, ba, dynamic, color, semantic, run, "
-                    "localize, bag) after the kernel checks; prints no "
-                    "result")
+                    "localize, viewer, bag, ros) after the kernel checks; "
+                    "prints no result")
     only = [p for p in ap.parse_args().only.split(",") if p]
     import torch
     if not torch.cuda.is_available():
@@ -2797,10 +3388,21 @@ def run_phases(only, dev, pool):
     kres = phase_kernels(frames, seq.poses, dev)
     fres = phase_fused_decode(dev)
     out = {}
-    if want("slice"):
-        out["slice"], _ = phase_slice(frames, seq.poses, dev)
-    if want("mesh"):
-        out["mesh"] = phase_mesh(frames, seq.poses, seq.scene_sdf, dev)
+    if want("slice") or want("dp"):
+        out["slice"], slice_res = phase_slice(frames, seq.poses, dev)
+    if want("mesh") or want("dp"):
+        knn_me, fd_me, mesh_system, mesh_mesher = phase_mesh(
+            frames, seq.poses, seq.scene_sdf, dev)
+        out["mesh"] = (knn_me, fd_me)
+    if want("dp"):
+        knn_dp, fd_dp, _ = phase_dp(slice_res["system"], mesh_system,
+                                    mesh_mesher, frames, seq.poses, dev)
+        out["dp"] = (knn_dp, fd_dp)
+    if want("slice") or want("dp"):
+        del slice_res
+    if want("mesh") or want("dp"):
+        del mesh_system, mesh_mesher
+    torch.cuda.empty_cache()
     if want("probes"):
         knn_pr, fd_pr, _ = phase_probes(frames, seq.poses, seq.scene_sdf,
                                         dev)
@@ -2864,14 +3466,35 @@ def run_phases(only, dev, pool):
             out["localize"] = (knn_loc, fd_loc)
             kres.append(loc_shape)
         shutil.rmtree(root, ignore_errors=True)
-    if want("bag"):
-        grids = make_frames(pool, bag_frame, range(BAG_FRAMES))
+    if want("viewer"):
+        if not (want("run") or want("localize")):
+            rseq = make_run_sequence()
+            rframes = make_frames(pool, _run_frame, range(VIEWER_FRAMES))
+        root = os.path.join(ROOT, "build", "chip_smoke_viewer")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        knn_vis, fd_vis, _ = phase_viewer(rframes[:VIEWER_FRAMES], rseq,
+                                          root)
+        out["viewer"] = (knn_vis, fd_vis)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if want("run") or want("localize") or want("viewer"):
+        del rframes
+    if want("bag") or want("ros"):
+        grids = make_frames(pool, bag_frame, range(
+            BAG_FRAMES if want("bag") else ROS_FRAMES))
         root = os.path.join(ROOT, "build", "chip_smoke_bag")
         shutil.rmtree(root, ignore_errors=True)
         os.makedirs(root)
-        knn_bag, fd_bag, _ = phase_bag(
-            grids, make_ncd_sequence(BAG_FRAMES + 1), root)
-        out["bag"] = (knn_bag, fd_bag)
+        bag_path = write_ncd_bag(grids, os.path.join(root, "bag"))
+        if want("bag"):
+            knn_bag, fd_bag, _ = phase_bag(
+                grids, make_ncd_sequence(BAG_FRAMES + 1), root)
+            out["bag"] = (knn_bag, fd_bag)
+        if want("ros"):
+            knn_ros, fd_ros, _ = phase_ros(
+                bag_path, make_ncd_sequence(BAG_FRAMES + 1), root, dev)
+            out["ros"] = (knn_ros, fd_ros)
         del grids
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2904,6 +3527,9 @@ def run_phases(only, dev, pool):
         "launches_bag_path": out["bag"][0],
         "launches_probes_path": out["probes"][0],
         "launches_options_path": out["options"][0],
+        "launches_viewer_path": out["viewer"][0],
+        "launches_dp_path": out["dp"][0],
+        "launches_ros_path": out["ros"][0],
         "shapes": {r["shape"]: {k: r[k] for k in (
             "n", "k", "visits", "max_visits", "distances",
             "longest_row_distances", "ms", "plain_ms", "bound_ms",
@@ -2923,6 +3549,9 @@ def run_phases(only, dev, pool):
         "launches_bag_path": out["bag"][1],
         "launches_probes_path": out["probes"][1],
         "launches_options_path": out["options"][1],
+        "launches_viewer_path": out["viewer"][1],
+        "launches_dp_path": out["dp"][1],
+        "launches_ros_path": out["ros"][1],
         "max_abs_err": max(r["max_abs_err"] for r in fres),
         "ms": me["ms"], "plain_ms": me["plain_ms"],
         "bound_ms": me["bound_ms"], "bound_by": me["bound_by"],

@@ -1,16 +1,14 @@
 """Configuration of the PyTorch port.
 
-The port's own copy of the part of `pin_slam_tpu/config.py` that its
-join-mode loop with its colour and semantic mapping, its mesher and its
-loop closure and pose-graph optimisation, its sliding-window bundle
-adjustment, its map-based dynamic filter, its dataset layer and its entry
-point (`run.py`: paths, frame range, deskew, saving, localization) read:
+The port's own copy of the part of `pin_slam_tpu/config.py` that the
+port reads: the track+map loop with its colour and semantic mapping, its
+mesher, loop closure and pose-graph optimisation, sliding-window bundle
+adjustment, the map-based dynamic filter, the dataset layer, the entry
+point (`run.py`: paths, frame range, deskew, saving, localization), the
+viewer (`gui/`, `utils/visualizer.py`), data parallelism and the ROS node:
 the same field names, defaults and YAML schema, so every config file of
 the repo loads into both packages and gives the same values for the fields
-kept here. Keys of features the port has not ported yet (the viewer, ROS)
-are ignored; the flags of features whose results it would change (data
-parallelism, the viewer) are loaded so that `PinSLAMSystem` or `run.py`
-refuses them.
+kept here. Keys no module of the port reads are ignored.
 The `tpu` YAML section keeps its name; its static capacities size the
 port's fixed-capacity tensors the same way.
 """
@@ -278,11 +276,19 @@ class Config:
     # --------------------------------------------------------------------- eval
     wandb_vis_on: bool = False
     silence: bool = True
-    o3d_vis_on: bool = False           # the viewer, not ported: refused
+    o3d_vis_on: bool = False           # the spawned viewer process
+    # viewer backend: 'auto' (Open3D window when available, else headless
+    # PNG), 'o3d', or 'png'
+    gui_backend: str = "auto"
     log_freq_frame: int = 2000
-    mesh_default_on: bool = False      # the viewer, not ported: refused
+    # the file visualizer's local meshes and SDF slices (utils/visualizer.py)
+    mesh_default_on: bool = False
     mesh_freq_frame: int = 20
-    sdf_default_on: bool = False       # the viewer, not ported: refused
+    sdf_default_on: bool = False
+    sdfslice_freq_frame: int = 1
+    vis_sdf_slice_v: bool = False
+    sdf_slice_height: float = -1.0
+    vis_sdf_res_m: float = 0.2
     eval_traj_align: bool = True
 
     # --------------------------------------------------------------------- mesh
@@ -299,6 +305,10 @@ class Config:
     save_merged_pc: bool = False
     save_mesh: bool = False
 
+    # -------------------------------------------------------------------- ROS
+    # the node exits after this many seconds without a point cloud
+    timeout_duration_s: int = 30
+
     # ---------------------------------------------------------- static shapes
     map_capacity: int = 1 << 20
     frame_point_cap: int = 1 << 16
@@ -312,7 +322,11 @@ class Config:
     probe_mode: str = "auto"
     # capacity of the per-frame compacted local point set (join probe)
     local_set_cap: int = 1 << 17
-    dp_on: bool = False                # data parallelism, not ported: refused
+    # data parallelism (parallel/dp.py): the training batches and the
+    # mesher's grid batches split over dp_devices replica devices (0 = every
+    # visible card); with one visible card the run is the single-card run
+    dp_on: bool = False
+    dp_devices: int = 0
 
     # derived (filled by finalize())
     infer_bs_final: int = 131072
@@ -324,6 +338,7 @@ class Config:
         self.consistency_count = int(self.bs / 4)
         self.window_radius = max(self.max_range, 6.0)
         self.local_map_radius = self.max_range + 2.0
+        self.vis_sdf_res_m = self.voxel_size_m * 0.3
         self.buffer_size = _next_pow2(int(self.buffer_size))
         self.map_capacity = _next_pow2(int(self.map_capacity))
         self.pool_capacity = int(self.pool_capacity)
@@ -577,9 +592,14 @@ class Config:
             self.wandb_vis_on = e.get("wandb_vis_on", self.wandb_vis_on)
             self.silence = e.get("silence_log", self.silence)
             self.o3d_vis_on = e.get("o3d_vis_on", self.o3d_vis_on)
+            self.gui_backend = e.get("gui_backend", self.gui_backend)
             self.log_freq_frame = e.get("log_freq_frame", self.log_freq_frame)
             self.mesh_freq_frame = e.get("mesh_freq_frame", self.mesh_freq_frame)
             self.sdf_default_on = e.get("sdf_default_on", self.sdf_default_on)
+            self.sdfslice_freq_frame = e.get(
+                "sdf_freq_frame", self.sdfslice_freq_frame)
+            self.sdf_slice_height = e.get("sdf_slice_height",
+                                          self.sdf_slice_height)
             self.mesh_default_on = e.get("mesh_default_on",
                                          self.mesh_default_on)
             self.mesh_min_nn = e.get("mesh_min_nn", self.mesh_min_nn)
@@ -604,5 +624,6 @@ class Config:
             self.local_set_cap = int(tp.get("local_set_cap",
                                             self.local_set_cap))
             self.dp_on = tp.get("dp_on", self.dp_on)
+            self.dp_devices = int(tp.get("dp_devices", self.dp_devices))
 
         return self.finalize()

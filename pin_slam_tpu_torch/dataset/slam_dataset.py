@@ -31,6 +31,7 @@ class SLAMDataset:
     def __init__(self, config: Config):
         self.config = config
         self.silence = config.silence
+        self.plot_status = None        # set by write_results
 
         # data-loader-backed mode (reference read_frame_with_loader,
         # dataset/slam_dataset.py:215-252)
@@ -168,12 +169,48 @@ class SLAMDataset:
 
     # -------------------------------------------------------------- results
 
+    def _write_plots(self, run_path, odom_poses, slam_poses, timings,
+                     loop_edges) -> str:
+        """The plots of `write_results`, as the JAX package writes them;
+        returns the names written, or why none were."""
+        try:
+            from pin_slam_tpu_torch.utils import plots
+            written = []
+            if timings is not None:
+                plots.plot_timing_detail(
+                    os.path.join(run_path, "timing_details.png"),
+                    np.asarray(timings))
+                written.append("timing_details.png")
+            final = slam_poses if slam_poses is not None else odom_poses
+            gtp = self.gt_poses if self.gt_pose_provided else None
+            extra = ({"odometry": odom_poses}
+                     if slam_poses is not None else None)
+            plots.plot_trajectories(
+                os.path.join(run_path, "traj_plot_2d.png"), final, gtp,
+                extra=extra)
+            plots.plot_trajectories(
+                os.path.join(run_path, "traj_plot_3d.png"), final, gtp,
+                extra=extra, plot_3d=True)
+            written += ["traj_plot_2d.png", "traj_plot_3d.png"]
+            if loop_edges is not None and len(loop_edges) > 0:
+                plots.plot_loops(os.path.join(run_path, "loop_plot.png"),
+                                 final, loop_edges)
+                written.append("loop_plot.png")
+        except Exception as e:
+            return f"not written ({type(e).__name__}: {e})"
+        return "written: " + ", ".join(written)
+
     def write_results(self, run_path: str, odom_poses: np.ndarray,
                       slam_poses: Optional[np.ndarray] = None,
-                      timings: Optional[np.ndarray] = None) -> dict:
-        """Write trajectories (KITTI + TUM), timing table and the pose
-        evaluation CSV (reference: dataset/slam_dataset.py:681-858).
-        Returns the metric dict (empty without gt)."""
+                      timings: Optional[np.ndarray] = None,
+                      loop_edges=None) -> dict:
+        """Write trajectories (KITTI + TUM), timing table, the plots of
+        `utils/plots.py` (trajectories 2D and 3D, timing, the loop edges)
+        and the pose evaluation CSV (reference:
+        dataset/slam_dataset.py:681-858). Returns the metric dict (empty
+        without gt). The plots are host-side output: where they cannot be
+        written (no matplotlib) `plot_status` says why, and the run's log
+        says it in one line."""
         os.makedirs(run_path, exist_ok=True)
         pcio.write_kitti_format_poses(
             os.path.join(run_path, "odom_poses_kitti.txt"), odom_poses)
@@ -188,6 +225,10 @@ class SLAMDataset:
         if timings is not None:
             np.save(os.path.join(run_path, "time_table.npy"),
                     np.asarray(timings))
+        self.plot_status = self._write_plots(run_path, odom_poses,
+                                             slam_poses, timings, loop_edges)
+        if not self.silence:
+            print(f"plots: {self.plot_status}")
 
         metrics = {}
         if self.gt_pose_provided and self.gt_poses is not None:

@@ -11,8 +11,12 @@ The run is on the CUDA card and raises without one; `-c` asks for the CPU
 (every kernel wrapper then runs its plain PyTorch version). With
 `setting: load_model: True` and `model_path` pointing at a saved
 `pin_map.npz` the run localizes against that map without mapping.
-The viewer (`-v`, `o3d_vis_on`, `mesh_default_on`, `sdf_default_on`) is not
-ported yet and raises NotImplementedError.
+`-v` (or `o3d_vis_on`) spawns the viewer process (`gui/`: an Open3D window
+where open3d and a display are present, else PNG renders and
+`<run>/gui/latest.npz`), fed one numpy-only packet a frame; `mesh_default_on`
+and `sdf_default_on` write local meshes and SDF slices under `<run>/vis`
+(`utils/visualizer.py`). With `tpu: dp_on` and more than one card the
+training and the meshers run data-parallel over them.
 
 Also importable as a library: `run_pin_slam(...)` returns the pose-eval
 metric dict (reference: pin_slam.py:566).
@@ -98,11 +102,6 @@ def run_pin_slam(
             set_dataset_path)
         set_dataset_path(config, dataset_name, sequence_name)
     config.finalize()
-    if config.o3d_vis_on or config.mesh_default_on or config.sdf_default_on:
-        raise NotImplementedError(
-            "the viewer (-v, o3d_vis_on, mesh_default_on, sdf_default_on) "
-            "needs utils/visualizer.py, utils/plots.py and gui/, which are "
-            "not ported yet (ROADMAP.md, queue 1)")
     device = resolve_device("cpu" if cpu_only else None)
 
     run_path = setup_experiment(config, argv)
@@ -130,10 +129,34 @@ def run_pin_slam(
             print(f"localization mode: map loaded from {config.model_path}")
     loop_mgr = LoopPgoManager(config, system) if config.pgo_on else None
 
+    visualizer = None
+    vis_mesher = None
+    if config.o3d_vis_on or config.mesh_default_on or config.sdf_default_on:
+        from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+        from pin_slam_tpu_torch.utils.visualizer import FileVisualizer
+        visualizer = FileVisualizer(config, run_path)
+        vis_mesher = Mesher(
+            system.qp,
+            MeshConfig(mc_res_m=config.mc_res_m,
+                       mesh_min_nn=config.mesh_min_nn,
+                       skip_top_voxel=config.skip_top_voxel,
+                       min_cluster_vertices=0,
+                       infer_bs=config.infer_bs_final),
+            mesh=system.mesh)
+
     metrics_logger = None
     if config.wandb_vis_on or log_on:
         from pin_slam_tpu_torch.utils.logger import MetricsLogger
         metrics_logger = MetricsLogger(config, run_path)
+
+    # spawned viewer process + control/vis queues (reference:
+    # pin_slam.py:200-217,412-433)
+    viewer = q_main2vis = q_vis2main = None
+    vis_state = {}
+    if config.o3d_vis_on:
+        from pin_slam_tpu_torch.gui import start_viewer
+        viewer, q_main2vis, q_vis2main = start_viewer(
+            run_path, backend=config.gui_backend)
 
     t_start = time.time()
     for frame_id in range(dataset.total_pc_count):
@@ -151,6 +174,39 @@ def run_pin_slam(
                              loop_hook=hook,
                              sem_labels=sem_labels
                              if config.semantic_on else None)
+        mesh_vf = (None, None)
+        if visualizer is not None:
+            mesh_vf = visualizer.on_frame(system, frame_id, vis_mesher)
+        if viewer is not None:
+            from pin_slam_tpu_torch.gui import VisPacket, apply_control
+            vis_state = apply_control(q_vis2main, vis_state,
+                                      max_pause_s=600.0)
+            el = time.time() - t_start
+            pkt = VisPacket(frame_id=frame_id,
+                            travel_dist=system.travel_dist[frame_id],
+                            cur_fps=(frame_id + 1) / max(el, 1e-9))
+            T = system.cur_pose_ref
+            pkt.add_scan(points[:: 5, :3] @ T[:3, :3].T + T[:3, 3])
+            pkt.add_traj(system.odom_poses[: frame_id + 1],
+                         dataset.gt_poses[: frame_id + 1]
+                         if dataset.gt_pose_provided else None,
+                         system.pgo_poses[: frame_id + 1]
+                         if config.pgo_on else None,
+                         loop_edges=loop_mgr.pgm.loop_edges
+                         if loop_mgr is not None else None)
+            if mesh_vf[0] is not None:
+                pkt.add_mesh(mesh_vf[0], mesh_vf[1])
+            if frame_id % 20 == 0:
+                cnt = int(system.state.count)
+                if cnt:
+                    stride = max(1, cnt // 40000)
+                    pkt.add_neural_points_data(
+                        system.state.positions[:cnt:stride],
+                        count=cnt,
+                        map_memory_mb=system.map_memory_mb(),
+                        resolution=config.voxel_size_m,
+                        pca_color_on=False)
+            q_main2vis.put(pkt)
         # periodic pose-log snapshots (reference: write_results_log,
         # dataset/slam_dataset.py:646-666)
         if config.log_freq_frame > 0 and \
@@ -174,9 +230,17 @@ def run_pin_slam(
     n = dataset.total_pc_count
     odom = system.odom_poses[:n]
     slam = system.pgo_poses[:n] if config.pgo_on else None
-    metrics = dataset.write_results(run_path, odom, slam,
-                                    np.asarray(system.timings))
+    metrics = dataset.write_results(
+        run_path, odom, slam, np.asarray(system.timings),
+        loop_edges=(loop_mgr.pgm.loop_edges
+                    if loop_mgr is not None else None))
 
+    if visualizer is not None:
+        visualizer.finalize(system, n, dataset.gt_poses
+                            if dataset.gt_pose_provided else None)
+    if viewer is not None:
+        from pin_slam_tpu_torch.gui import stop_viewer
+        stop_viewer(viewer, q_main2vis)
     if metrics_logger is not None:
         if metrics:
             metrics_logger.log(metrics, step=n)
@@ -227,7 +291,8 @@ def run_pin_slam(
                 infer_bs=config.infer_bs_final,
                 chunk_m=out_res * 200),
             color_channel=config.color_channel,
-            semantic_on=config.semantic_on)
+            semantic_on=config.semantic_on,
+            mesh=system.mesh)
         verts, faces = mesher.recon_map_mesh(
             system.state, system.params["geo_features"],
             system.params["geo_mlp"])
@@ -277,7 +342,8 @@ def main(argv=None):
     p.add_argument("-p", "--save-merged-pc", action="store_true")
     p.add_argument("--deskew", action="store_true")
     p.add_argument("-v", "--visualize", action="store_true",
-                   help="the viewer (not ported yet: raises)")
+                   help="spawn the viewer process (Open3D window or "
+                   "headless PNG renderer)")
     a = p.parse_args(argv)
     metrics = run_pin_slam(
         a.config_path, a.dataset_name, a.sequence_name, a.input_path,

@@ -35,6 +35,7 @@ from pin_slam_tpu_torch.models import neural_points as npm
 from pin_slam_tpu_torch.ops import hash3d
 from pin_slam_tpu_torch.ops.scatter import index_add_exact
 from pin_slam_tpu_torch.ops.voxel import compact_rows
+from pin_slam_tpu_torch.parallel import dp
 from pin_slam_tpu_torch.slam import map_query as mq
 
 PROBE_CHUNK = 196608   # queries per k-NN call in the training probe
@@ -377,7 +378,7 @@ def draw_train_indices(generator, pool: PoolState, *, n_iters: int, bs: int,
 
 def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                     n_iters: int, bs: int, bs_new: int, train_decoder: bool,
-                    loss_kwargs: dict, subset_hist: int = 0):
+                    loss_kwargs: dict, subset_hist: int = 0, mesh=None):
     """Whole per-frame training run (`n_iters` mapping iterations).
 
     With a local set and n_iters <= 32 and subset_hist >= bs (the
@@ -388,12 +389,26 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
     in chunks. Without a local set (`lset=None`) each iteration draws its
     own batch and queries the whole map state under the LocalFilter `lf`.
 
+    With `mesh` (a list of R replica devices, `parallel/dp.make_mesh`) the
+    run is data-parallel, as the JAX package's `shard_map` loop: replica r
+    holds the map, pool and local set on its device (tensors already there
+    are not copied), draws its own batches (its own generator, from the
+    frame's generator and r; or `draws[r]`) and computes its loss and
+    gradients; the gradients come to the first device, are summed in
+    replica order and divided by R, and one Adam step there updates the
+    trained tensors, which are copied back to the other devices, so every
+    replica steps from the same values (the JAX loop's `pmean`). The loss
+    is the replicas' mean. Every replica's certainty and update-timestamp
+    contributions go through one order-free `index_add_exact` pass and one
+    max on the first device (the JAX loop's `psum` / `pmax`). The effective
+    batch of an iteration is R x bs.
+
     Returns loop(params, state, pool, generator, use_new, lset, draws=None,
     lf=None, terms=None) -> (params, state, losses [n_iters]); `draws`
-    (from `draw_train_indices`) replaces the generator's draws; `lf`
-    carries the sensor origins of the projective correction on either
-    route; a `terms` dict receives the per-iteration consistency term
-    ("consistency_loss" [n_iters])."""
+    (from `draw_train_indices`; a list of one per replica with `mesh`)
+    replaces the generator's draws; `lf` carries the sensor origins of the
+    projective correction on either route; a `terms` dict receives the
+    per-iteration consistency term ("consistency_loss" [n_iters])."""
     pre_gather = n_iters <= 32
     use_subset = pre_gather and subset_hist >= bs
     cand_k = qp.nn_k + 2
@@ -401,6 +416,7 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
     color_on = loss_kwargs.get("color_on", False)
     cons_m = (min(loss_kwargs.get("consistency_count", 1000), bs)
               if loss_kwargs.get("consistency_loss_on", False) else 0)
+    replicas = None if mesh is None else [torch.device(d) for d in mesh]
 
     def probe_chunked(coords, lset):
         idx_parts, val_parts = [], []
@@ -435,97 +451,25 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
             batch["color_label"] = packed[:, col:]
         return batch
 
-    def loop(params, state: npm.MapState, pool: PoolState, generator,
-             use_new: torch.Tensor, lset, draws: Optional[dict] = None,
-             lf: Optional[mq.LocalFilter] = None,
-             terms: Optional[dict] = None):
-        dev = state.positions.device
-        C = state.capacity
-        whole = lset is None
-        if draws is None:
-            draws = draw_train_indices(generator, pool, n_iters=n_iters,
-                                       bs=bs, bs_new=bs_new,
-                                       subset_hist=subset_hist,
-                                       whole_map=whole, cons_m=cons_m)
-        cons_u = draws.get("cons_u")
-        # the trained feature rows: the local set's, or the whole map's
-        rows_of = (lambda a: a) if whole else (lambda a: a[lset.gidx])
-        lfeat = rows_of(params["geo_features"]).detach().clone()
-        lfeat.requires_grad_(True)
-        train_vars = [lfeat]
-        lcfeat = None
-        if color_on and params.get("color_features") is not None:
-            lcfeat = rows_of(params["color_features"]).detach().clone()
-            lcfeat.requires_grad_(True)
-            train_vars.append(lcfeat)
-        mlps = {}
-        for name in ("geo_mlp", "color_mlp", "sem_mlp"):
-            if params.get(name) is None:
-                continue
-            mlps[name] = {
-                k: [t.detach().clone().requires_grad_(train_decoder)
-                    for t in params[name][k]] for k in ("w", "b")}
-            if train_decoder:
-                train_vars += mlps[name]["w"] + mlps[name]["b"]
-        mlp = mlps["geo_mlp"]
-        # a fresh Adam per frame, matched to optax.adam(lr, eps)
-        opt = torch.optim.Adam(train_vars, lr=lr, betas=(0.9, 0.999),
-                               eps=adam_eps)
-        # min(new_count, bs_new) fresh slots per iteration, none when the
-        # new-sample mix is disabled
-        slot = use_new & (torch.arange(bs_new, device=dev) < pool.new_count)
+    def batches(pool: PoolState, lset, draws: dict, slot: torch.Tensor):
+        """One replica's batches: batch_of(i) -> (batch, mask, cand,
+        cvalid) of iteration i, and the subset path's rows, candidates and
+        window starts (None on the other paths)."""
+        dev = pool.coord.device
         new_rows = pool.new_idx[draws["new_sel"]]         # [n_iters, bs_new]
-        extra = dict(lf=lf)
-
-        if whole:
-            extra["state"] = state
+        if lset is None or not use_subset:
             hist = draws["hist"]                           # [n_iters, bs]
             if bs_new > 0:
                 tail = torch.where(slot[None], new_rows, hist[:, :bs_new])
                 idx_all = torch.cat([hist[:, :bs - bs_new], tail], dim=1)
             else:
                 idx_all = hist
-
+        if lset is None:
             def batch_of(i):
                 return (unpack(pack_pool_rows(pool, idx_all[i])),
                         idx_all[i] < pool.count, None, None)
-        elif use_subset:
-            S_h = draws["hist"].shape[0]
-            sub_idx = torch.cat([draws["hist"], new_rows.reshape(-1)])
-            packed = pack_pool_rows(pool, sub_idx)
-            # row validity folded into the weight: dead rows never train
-            packed[:, 4] = torch.where(sub_idx < pool.count, packed[:, 4],
-                                       torch.zeros_like(packed[:, 4]))
-            cand_sub, cval_sub = probe_chunked(packed[:, :3], lset)
-            ph2 = torch.cat([packed[:S_h], packed[:S_h]])
-            ch2 = torch.cat([cand_sub[:S_h], cand_sub[:S_h]])
-            cv2 = torch.cat([cval_sub[:S_h], cval_sub[:S_h]])
-            stride = bs + max(bs // 4, 1)
-            starts = [(i * stride) % S_h for i in range(n_iters)]
-            ones = torch.ones(bs, dtype=torch.bool, device=dev)
-
-            def batch_of(i):
-                st = starts[i]
-                hp, hc, hv = ph2[st:st + bs], ch2[st:st + bs], cv2[st:st + bs]
-                if bs_new > 0:
-                    a, b = S_h + i * bs_new, S_h + (i + 1) * bs_new
-                    s = slot[:, None]
-                    hp = torch.cat([hp[:bs - bs_new],
-                                    torch.where(s, packed[a:b], hp[:bs_new])])
-                    hc = torch.cat([hc[:bs - bs_new],
-                                    torch.where(s, cand_sub[a:b],
-                                                hc[:bs_new])])
-                    hv = torch.cat([hv[:bs - bs_new],
-                                    torch.where(s, cval_sub[a:b],
-                                                hv[:bs_new])])
-                return unpack(hp), ones, hc, hv
-        else:
-            hist = draws["hist"]                           # [n_iters, bs]
-            if bs_new > 0:
-                tail = torch.where(slot[None], new_rows, hist[:, :bs_new])
-                idx_all = torch.cat([hist[:, :bs - bs_new], tail], dim=1)
-            else:
-                idx_all = hist
+            return batch_of, None
+        if not use_subset:
             mask_all = idx_all < pool.count
             cand_flat, cval_flat = probe_chunked(
                 pool.coord[idx_all.reshape(-1)], lset)
@@ -535,39 +479,216 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
             def batch_of(i):
                 return (unpack(pack_pool_rows(pool, idx_all[i])),
                         mask_all[i], cand_all[i], cval_all[i])
+            return batch_of, None
+        S_h = draws["hist"].shape[0]
+        sub_idx = torch.cat([draws["hist"], new_rows.reshape(-1)])
+        packed = pack_pool_rows(pool, sub_idx)
+        # row validity folded into the weight: dead rows never train
+        packed[:, 4] = torch.where(sub_idx < pool.count, packed[:, 4],
+                                   torch.zeros_like(packed[:, 4]))
+        cand_sub, cval_sub = probe_chunked(packed[:, :3], lset)
+        ph2 = torch.cat([packed[:S_h], packed[:S_h]])
+        ch2 = torch.cat([cand_sub[:S_h], cand_sub[:S_h]])
+        cv2 = torch.cat([cval_sub[:S_h], cval_sub[:S_h]])
+        stride = bs + max(bs // 4, 1)
+        starts = [(i * stride) % S_h for i in range(n_iters)]
+        ones = torch.ones(bs, dtype=torch.bool, device=dev)
+
+        def batch_of(i):
+            st = starts[i]
+            hp, hc, hv = ph2[st:st + bs], ch2[st:st + bs], cv2[st:st + bs]
+            if bs_new > 0:
+                a, b = S_h + i * bs_new, S_h + (i + 1) * bs_new
+                s = slot[:, None]
+                hp = torch.cat([hp[:bs - bs_new],
+                                torch.where(s, packed[a:b], hp[:bs_new])])
+                hc = torch.cat([hc[:bs - bs_new],
+                                torch.where(s, cand_sub[a:b], hc[:bs_new])])
+                hv = torch.cat([hv[:bs - bs_new],
+                                torch.where(s, cval_sub[a:b], hv[:bs_new])])
+            return unpack(hp), ones, hc, hv
+        return batch_of, (packed, cand_sub, cval_sub, S_h, starts)
+
+    def subset_contribs(sub, lset, slot):
+        """A subset row's neighbors and IDW weights are frame-constant, so
+        its total certainty contribution is multiplicity x weight; the
+        multiplicity follows from the window schedule, corrected for the
+        tail slots the new-sample mix takes over."""
+        packed, cand_sub, cval_sub, S_h, starts = sub
+        dev = packed.device
+        k_nn = qp.nn_k
+        idx6 = cand_sub[:, :k_nn]
+        val6 = cval_sub[:, :k_nn]
+        pos6 = lset.pts[torch.where(val6, idx6,
+                                    torch.full_like(idx6, lset.cap))]
+        diff6 = packed[:, None, :3] - pos6
+        d2 = torch.sum(diff6 * diff6, dim=-1)
+        d2 = torch.where(val6, d2, torch.full_like(d2, npm.BIG_DIST2))
+        w6 = npm.idw_weights(npm.QueryNeighbors(
+            idx=idx6, dist2=d2, valid=val6,
+            nn_count=val6.sum(-1, dtype=torch.int32)),
+            idw_index=qp.idw_index)
+        base = np.zeros(S_h, np.float32)
+        for st_ in starts:
+            for e_ in (st_ + bs - bs_new, st_ + min(bs_new, bs)):
+                base[st_:min(e_, S_h)] += 1
+                if e_ > S_h:
+                    base[: e_ - S_h] += 1
+        mult_hist = torch.as_tensor(base, device=dev)
+        if bs_new > 0:
+            tmask = slot.to(torch.float32)
+            heads = torch.as_tensor(
+                [[(st_ + j) % S_h for j in range(bs_new)]
+                 for st_ in starts], device=dev)
+            mult_hist = mult_hist.index_add(
+                0, heads.reshape(-1), -tmask.repeat(n_iters))
+            mult = torch.cat([mult_hist, tmask.repeat(n_iters)])
+        else:
+            mult = mult_hist
+        ts_sub = packed[:, 5].to(torch.int32)
+        ci = torch.where(val6, idx6, torch.full_like(idx6, lset.cap))
+        cw = torch.where(val6, w6, torch.zeros_like(w6)) * mult[:, None]
+        cts = torch.where((mult[:, None] > 0.5) & val6, ts_sub[:, None],
+                          torch.zeros_like(ts_sub)[:, None])
+        return ci, cw, cts
+
+    def iteration_contribs(aux, cap: int):
+        qn = aux["qn"]
+        return (torch.where(qn.valid, qn.idx, torch.full_like(qn.idx, cap)),
+                torch.where(qn.valid, aux["w"].detach(),
+                            torch.zeros_like(aux["w"])),
+                torch.where(qn.valid, aux["ts"][:, None],
+                            torch.zeros_like(qn.idx, dtype=torch.int32)))
+
+    def loop(params, state: npm.MapState, pool: PoolState, generator,
+             use_new: torch.Tensor, lset, draws=None,
+             lf: Optional[mq.LocalFilter] = None,
+             terms: Optional[dict] = None):
+        dev = state.positions.device
+        C = state.capacity
+        whole = lset is None
+        devs = [dev] if replicas is None else replicas
+        R = len(devs)
+        # each replica's map, pool, local set and filter on its device
+        # (the caller's tensors where they already are there)
+        reps = [dict(state=dp.replicate(state, d) if whole else None,
+                     pool=dp.replicate(pool, d), lset=dp.replicate(lset, d),
+                     lf=dp.replicate(lf, d)) for d in devs]
+        if draws is None:
+            gens = ([generator] if replicas is None
+                    else dp.replica_generators(generator, devs))
+            draws = [draw_train_indices(g, rp["pool"], n_iters=n_iters,
+                                        bs=bs, bs_new=bs_new,
+                                        subset_hist=subset_hist,
+                                        whole_map=whole, cons_m=cons_m)
+                     for g, rp in zip(gens, reps)]
+        elif replicas is None:
+            draws = [draws]
+        draws = [dp.replicate(d, dv) for d, dv in zip(draws, devs)]
+        # the trained feature rows: the local set's, or the whole map's
+        rows_of = (lambda a: a) if whole else (lambda a: a[lset.gidx])
+        lfeat = rows_of(params["geo_features"]).detach().clone()
+        lfeat.requires_grad_(True)
+        lcfeat = None
+        if color_on and params.get("color_features") is not None:
+            lcfeat = rows_of(params["color_features"]).detach().clone()
+            lcfeat.requires_grad_(True)
+        mlps = {}
+        for name in ("geo_mlp", "color_mlp", "sem_mlp"):
+            if params.get(name) is None:
+                continue
+            mlps[name] = {
+                k: [t.detach().clone().requires_grad_(train_decoder)
+                    for t in params[name][k]] for k in ("w", "b")}
+
+        def trainable(feat, cfeat, ms):
+            out = [feat] + ([cfeat] if cfeat is not None else [])
+            if train_decoder:
+                for m in ms.values():
+                    out += m["w"] + m["b"]
+            return out
+
+        train_vars = trainable(lfeat, lcfeat, mlps)
+        # a fresh Adam per frame, matched to optax.adam(lr, eps)
+        opt = torch.optim.Adam(train_vars, lr=lr, betas=(0.9, 0.999),
+                               eps=adam_eps)
+
+        # each replica's own leaves: aliases of the trained tensors on
+        # their device (Adam's in-place step reaches them), copies on
+        # another device
+        def leaf(t, d):
+            return t.detach().to(d).requires_grad_(t.requires_grad)
+        rvars = [(leaf(lfeat, d), None if lcfeat is None else leaf(lcfeat, d),
+                  {n: {k: [leaf(t, d) for t in m[k]] for k in ("w", "b")}
+                   for n, m in mlps.items()}) for d in devs]
+        for rp, dr, d in zip(reps, draws, devs):
+            # min(new_count, bs_new) fresh slots per iteration, none when
+            # the new-sample mix is disabled
+            rp["slot"] = (use_new.to(d) & (torch.arange(bs_new, device=d)
+                                           < rp["pool"].new_count))
+            rp["batch_of"], rp["sub"] = batches(rp["pool"], rp["lset"], dr,
+                                                rp["slot"])
+            rp["cons_u"] = dr.get("cons_u")
+
+        def replica_loss(r, i):
+            rp, (feat, cfeat, rm) = reps[r], rvars[r]
+            batch, bmask, cnd, cnv = rp["batch_of"](i)
+            extra = dict(lf=rp["lf"])
+            if whole:
+                extra["state"] = rp["state"]
+            return mapping_loss(
+                feat, rm["geo_mlp"], batch, bmask, cnd, cnv, rp["lset"], qp,
+                color_features=cfeat, color_mlp=rm.get("color_mlp"),
+                sem_mlp=rm.get("sem_mlp"),
+                cons_u=None if rp["cons_u"] is None else rp["cons_u"][i],
+                **extra, **loss_kwargs)
 
         losses = []
         cons_terms = []
         contribs = []
         for i in range(n_iters):
-            batch, bmask, cnd, cnv = batch_of(i)
+            # the replicas' gradients summed on the first device in replica
+            # order and averaged: one Adam step for every replica
+            gsum, lsum, csum, auxs = None, None, None, []
+            for r in range(R):
+                loss_r, aux_r = replica_loss(r, i)
+                g = torch.autograd.grad(loss_r, trainable(*rvars[r]),
+                                        allow_unused=True)
+                g = [None if x is None else x.to(dev) for x in g]
+                gsum = g if gsum is None else [
+                    b if a is None else a if b is None else a + b
+                    for a, b in zip(gsum, g)]
+                lr_ = loss_r.detach().to(dev)
+                cr_ = aux_r["consistency_loss"].detach().to(dev)
+                lsum = lr_ if lsum is None else lsum + lr_
+                csum = cr_ if csum is None else csum + cr_
+                auxs.append(dp.replicate(aux_r, dev))
             opt.zero_grad(set_to_none=True)
-            loss, aux = mapping_loss(
-                lfeat, mlp, batch, bmask, cnd, cnv, lset, qp,
-                color_features=lcfeat, color_mlp=mlps.get("color_mlp"),
-                sem_mlp=mlps.get("sem_mlp"),
-                cons_u=None if cons_u is None else cons_u[i], **extra,
-                **loss_kwargs)
-            loss.backward()
+            for p, g in zip(train_vars, gsum):
+                p.grad = None if g is None else g / R
             opt.step()
-            losses.append(loss.detach())
-            cons_terms.append(aux["consistency_loss"].detach())
+            with torch.no_grad():
+                for r, d in enumerate(devs):
+                    if d != dev:
+                        for a, b in zip(trainable(*rvars[r]), train_vars):
+                            a.copy_(b)
+            losses.append(lsum / R)
+            cons_terms.append(csum / R)
             if whole:
                 # the certainty and update timestamps of every iteration's
                 # neighbors, before the next iteration's query
                 with torch.no_grad():
-                    npm.accumulate_certainty(state, aux["qn"],
-                                             aux["w"].detach(), aux["ts"])
+                    qn = [a["qn"] for a in auxs]
+                    npm.accumulate_certainty(
+                        state, npm.QueryNeighbors(
+                            idx=torch.cat([q.idx for q in qn]),
+                            dist2=torch.cat([q.dist2 for q in qn]),
+                            valid=torch.cat([q.valid for q in qn]),
+                            nn_count=torch.cat([q.nn_count for q in qn])),
+                        torch.cat([a["w"].detach() for a in auxs]),
+                        torch.cat([a["ts"] for a in auxs]))
             elif not use_subset:
-                qn = aux["qn"]
-                contribs.append((
-                    torch.where(qn.valid, qn.idx,
-                                torch.full_like(qn.idx, lset.cap)),
-                    torch.where(qn.valid, aux["w"].detach(),
-                                torch.zeros_like(aux["w"])),
-                    torch.where(qn.valid, aux["ts"][:, None],
-                                torch.zeros_like(qn.idx,
-                                                 dtype=torch.int32))))
+                contribs += [iteration_contribs(a, lset.cap) for a in auxs]
 
         if terms is not None:
             terms["consistency_loss"] = torch.stack(cons_terms)
@@ -587,51 +708,14 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
             return new_params, state, torch.stack(losses)
 
         if use_subset:
-            # a subset row's neighbors and IDW weights are frame-constant,
-            # so its total certainty contribution is multiplicity x weight;
-            # the multiplicity follows from the window schedule, corrected
-            # for the tail slots the new-sample mix takes over
-            k_nn = qp.nn_k
-            idx6 = cand_sub[:, :k_nn]
-            val6 = cval_sub[:, :k_nn]
-            pos6 = lset.pts[torch.where(val6, idx6,
-                                        torch.full_like(idx6, lset.cap))]
-            diff6 = packed[:, None, :3] - pos6
-            d2 = torch.sum(diff6 * diff6, dim=-1)
-            d2 = torch.where(val6, d2, torch.full_like(d2, npm.BIG_DIST2))
-            w6 = npm.idw_weights(npm.QueryNeighbors(
-                idx=idx6, dist2=d2, valid=val6,
-                nn_count=val6.sum(-1, dtype=torch.int32)),
-                idw_index=qp.idw_index)
-            base = np.zeros(S_h, np.float32)
-            for st_ in starts:
-                for e_ in (st_ + bs - bs_new, st_ + min(bs_new, bs)):
-                    base[st_:min(e_, S_h)] += 1
-                    if e_ > S_h:
-                        base[: e_ - S_h] += 1
-            mult_hist = torch.as_tensor(base, device=dev)
-            if bs_new > 0:
-                tmask = slot.to(torch.float32)
-                heads = torch.as_tensor(
-                    [[(st_ + j) % S_h for j in range(bs_new)]
-                     for st_ in starts], device=dev)
-                mult_hist = mult_hist.index_add(
-                    0, heads.reshape(-1), -tmask.repeat(n_iters))
-                mult = torch.cat([mult_hist, tmask.repeat(n_iters)])
-            else:
-                mult = mult_hist
-            ts_sub = packed[:, 5].to(torch.int32)
-            ci = torch.where(val6, idx6, torch.full_like(idx6, lset.cap))
-            cw = torch.where(val6, w6, torch.zeros_like(w6)) * mult[:, None]
-            cts = torch.where((mult[:, None] > 0.5) & val6, ts_sub[:, None],
-                              torch.zeros_like(ts_sub)[:, None])
-        else:
-            ci = torch.cat([c[0] for c in contribs])
-            cw = torch.cat([c[1] for c in contribs])
-            cts = torch.cat([c[2] for c in contribs])
+            contribs = [dp.replicate(subset_contribs(rp["sub"], rp["lset"],
+                                                     rp["slot"]), dev)
+                        for rp in reps]
+        ci = torch.cat([c[0].reshape(-1) for c in contribs])
+        cw = torch.cat([c[1].reshape(-1) for c in contribs])
+        cts = torch.cat([c[2].reshape(-1) for c in contribs])
         cert_l, ts_l = accumulate_certainty_sorted(
-            lset.cert, lset.ts_upd, ci.reshape(-1), cw.reshape(-1),
-            cts.reshape(-1), lset.cap)
+            lset.cert, lset.ts_upd, ci, cw, cts, lset.cap)
 
         # scatter the trained local rows back once (padded rows all point
         # at the dump row C, which is reset afterwards)

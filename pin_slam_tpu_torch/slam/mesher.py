@@ -18,12 +18,21 @@ from these static facts before its first query and keeps it in
 `decode_route`. Grid coordinates are made on the map's device per
 batch (the last batch is ragged, not padded) and each grid is pulled to the
 host once. `vertex_attributes` decodes per-vertex colour and semantic
-labels. Sharding the batches over several devices is not ported yet.
+labels.
+
+With `mesh` (a list of R replica devices, `parallel/dp.make_mesh`) every
+grid and slice batch splits into R contiguous parts, replica r queries
+part r on its device and the results are written back in order (the JAX
+package's batch sharding over its mesh). The map and decoder are copied to
+the replica devices once per mesh, slice or grid query, not once per batch
+(a replica on the map's own device shares its tensors); under the fused
+route every part is one kernel launch, R a batch.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
@@ -36,6 +45,7 @@ from pin_slam_tpu_torch.ops.marching import (
     filter_small_clusters,
     marching_tetrahedra,
 )
+from pin_slam_tpu_torch.parallel import dp
 from pin_slam_tpu_torch.slam import map_query as mq
 
 
@@ -53,11 +63,15 @@ class MeshConfig:
 
 class Mesher:
     def __init__(self, qp: mq.QueryParams, mc: MeshConfig,
-                 color_channel: int = 0, semantic_on: bool = False):
+                 color_channel: int = 0, semantic_on: bool = False,
+                 mesh=None):
         self.qp = qp
         self.mc = mc
         self.color_channel = color_channel
         self.semantic_on = semantic_on
+        # replica devices of the sharded grid queries (None: one device)
+        self.mesh = None if mesh is None else [torch.device(d) for d in mesh]
+        self._reps = None      # the replicas of the map being meshed
         # running totals over this mesher's calls (logs and benchmarks)
         self.n_batches = 0
         self.query_seconds = 0.0      # grid queries incl. the pull to the host
@@ -81,18 +95,50 @@ class Mesher:
         self.decode_route = "fused_decode" if fused else "plain"
         sdf = torch.empty(n, dtype=torch.float32, device=dev)
         nn = torch.empty(n, dtype=torch.int32, device=dev)
+        reps = self._replicas(state, geo_features, geo_mlp)
+        R = len(reps)
         with torch.no_grad():
             for lo in range(0, n, bs):
                 hi = min(lo + bs, n)
-                out = mq.query_decode(geo_features, geo_mlp,
-                                      coords_of(lo, hi), self.qp,
-                                      state=state, fused=fused)
-                sdf[lo:hi] = out.sdf
-                nn[lo:hi] = out.nn_count
+                coords = coords_of(lo, hi)
+                # replica r queries the r-th contiguous part of the batch
+                for r, (st, gf, mlp) in enumerate(reps):
+                    a = (hi - lo) * r // R
+                    b = (hi - lo) * (r + 1) // R
+                    if b == a:
+                        continue
+                    out = mq.query_decode(
+                        gf, mlp, coords[a:b].to(st.positions.device),
+                        self.qp, state=st, fused=fused)
+                    sdf[lo + a:lo + b] = out.sdf.to(dev)
+                    nn[lo + a:lo + b] = out.nn_count.to(dev)
                 self.n_batches += 1
         sdf, nn = sdf.cpu().numpy(), nn.cpu().numpy()
         self.query_seconds += time.time() - t0
         return sdf, nn
+
+    def _replicas(self, state, geo_features, geo_mlp):
+        """(state, features, decoder) on each replica device: those of the
+        map being meshed (`_replicated`), else copies for this query."""
+        if self._reps is not None:
+            return self._reps
+        if self.mesh is None:
+            return [(state, geo_features, geo_mlp)]
+        return [dp.replicate((state, geo_features, geo_mlp), d)
+                for d in self.mesh]
+
+    @contextmanager
+    def _replicated(self, state, geo_features, geo_mlp):
+        """Copy the map and decoder to the replica devices once for every
+        grid query inside the block."""
+        if self._reps is not None:
+            yield
+            return
+        self._reps = self._replicas(state, geo_features, geo_mlp)
+        try:
+            yield
+        finally:
+            self._reps = None
 
     def grid_coords(self, origin: np.ndarray, dims: Tuple[int, int, int],
                     lo: int, hi: int, device) -> torch.Tensor:
@@ -186,14 +232,15 @@ class Mesher:
         hi = pos.amax(0).cpu().numpy()
         all_v, all_f = [], []
         voff = 0
-        for c_lo, c_hi in self.split_chunks(lo, hi, self.mc.chunk_m):
-            v, f = self.recon_aabb_mesh(state, geo_features, geo_mlp,
-                                        c_lo, c_hi)
-            if v.shape[0] == 0:
-                continue
-            all_v.append(v)
-            all_f.append(f + voff)
-            voff += v.shape[0]
+        with self._replicated(state, geo_features, geo_mlp):
+            for c_lo, c_hi in self.split_chunks(lo, hi, self.mc.chunk_m):
+                v, f = self.recon_aabb_mesh(state, geo_features, geo_mlp,
+                                            c_lo, c_hi)
+                if v.shape[0] == 0:
+                    continue
+                all_v.append(v)
+                all_f.append(f + voff)
+                voff += v.shape[0]
         if not all_v:
             return np.zeros((0, 3)), np.zeros((0, 3), np.int64)
         verts = np.concatenate(all_v)

@@ -33,8 +33,12 @@ mapping, training, pruning or pool filtering is dispatched.
 
 The host keeps float64 pose chains and travel distance; the device works in
 float32 with a per-frame anchor (the last sensor position). The map grows
-its capacity when it passes 90 % of it. Data parallelism is not ported and
-raises NotImplementedError. Under the brick probe the map keeps its brick
+its capacity when it passes 90 % of it. With `dp_on` and more than one
+replica device (the visible cards, `dp_devices` of them, or the `mesh`
+argument) the training runs data-parallel (`mapper.make_train_loop(mesh=)`)
+and `self.mesh` holds the replica devices for the meshers; otherwise
+`self.mesh` is None and the run is the single-device run, as the JAX
+package's rule has it. Under the brick probe the map keeps its brick
 cache; under the join and cell probes it keeps none (the JAX package
 maintains one under cells too, which no probe of that mode reads).
 
@@ -69,6 +73,7 @@ from pin_slam_tpu_torch.ops.visibility import (
     visibility_free_mask,
 )
 from pin_slam_tpu_torch.ops.voxel import voxel_down_sample_hash_mask
+from pin_slam_tpu_torch.parallel import dp
 from pin_slam_tpu_torch.slam import map_query as mq
 from pin_slam_tpu_torch.slam import mapper as mp
 from pin_slam_tpu_torch.slam import tracker as tk
@@ -112,21 +117,24 @@ def _pad_points(pts: np.ndarray, cap: int, attr_dim: int = 0):
     return out, attr, n
 
 
-def _check_supported(c: Config) -> None:
-    if c.dp_on:
-        raise NotImplementedError(
-            "not ported yet: dp_on (the port runs on one card)")
-
-
 class PinSLAMSystem:
     """Host-side orchestrator owning all device state."""
 
     def __init__(self, config: Config, device=None,
                  generator: Optional[torch.Generator] = None,
-                 sync_timing: bool = False):
-        _check_supported(config)
+                 sync_timing: bool = False, mesh=None):
         self.config = c = config
         self.device = resolve_device(device)
+        # data parallelism (`dp_on`): the replica devices of the training
+        # loop and the meshers; `mesh` names them (tests: ["cpu"] * 8),
+        # else the visible cards. One replica is the single-device run.
+        self.mesh = None
+        if c.dp_on:
+            if mesh is None and self.device.type == "cuda" \
+                    and torch.cuda.device_count() > 1:
+                mesh = dp.make_mesh(c.dp_devices or None)
+            if mesh is not None and len(mesh) > 1:
+                self.mesh = dp.make_mesh(devices=mesh)
         # one explicit generator drives every random draw of the system
         self.gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(c.seed)
@@ -608,7 +616,7 @@ class PinSLAMSystem:
                 self.qp, lr=c.lr, adam_eps=c.adam_eps, n_iters=iters,
                 bs=c.bs, bs_new=c.bs_new_sample, train_decoder=train_decoder,
                 loss_kwargs=self._loss_kwargs,
-                subset_hist=c.train_subset_hist)
+                subset_hist=c.train_subset_hist, mesh=self.mesh)
         return self._train_loops[k]
 
     def _lf(self, cur_ts: int, sensor_pos=None) -> mq.LocalFilter:

@@ -160,22 +160,60 @@ def test_brick_probe_is_refused():
 
 
 def test_unported_yaml_features_are_refused():
-    """Every shipped YAML passes the port's check; of the flags a YAML can
-    set, only data parallelism still refuses a system."""
-    from pin_slam_tpu_torch.slam.system import (PinSLAMSystem,
-                                                _check_supported)
+    """Every shipped YAML loads into the port's Config, and no flag a YAML
+    can set refuses a system any more: data parallelism, the last one,
+    builds a system (single-device without a second device, the JAX
+    package's rule)."""
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
     assert len(YAMLS) == 20
     for path in YAMLS:
-        _check_supported(TConfig().load(path))
-    for flag in ("incidence_label_on", "consistency_loss_on"):
-        c = TConfig()
-        setattr(c, flag, True)
-        _check_supported(c.finalize())
+        TConfig().load(path)
     c = TConfig()
+    c.map_capacity, c.buffer_size, c.pool_capacity = 1 << 12, 1 << 14, 4096
     c.dp_on = True
-    with pytest.raises(NotImplementedError, match="dp_on"):
-        PinSLAMSystem(c.finalize(), device="cpu")
+    assert PinSLAMSystem(c.finalize(), device="cpu").mesh is None
+
+
+VIEWER_DP_ROS_FIELDS = (
+    "gui_backend", "sdfslice_freq_frame", "vis_sdf_slice_v",
+    "sdf_slice_height", "vis_sdf_res_m", "timeout_duration_s", "dp_devices",
+    "dp_on", "mesh_freq_frame")
+
+
+@pytest.mark.parametrize("field", VIEWER_DP_ROS_FIELDS)
+def test_viewer_dp_ros_field_kept_and_loaded_alike(field):
+    """Each field the viewer, the file visualizer, data parallelism and the
+    ROS node read is a field of the port's Config with the JAX package's
+    default, and over every YAML of the repo it loads to the JAX package's
+    value (vis_sdf_res_m follows the voxel size, as finalize() sets it)."""
+    assert field in {f.name for f in dataclasses.fields(TConfig)}
+    assert getattr(TConfig().finalize(), field) == \
+        getattr(JConfig().finalize(), field)
+    for path in YAMLS:
+        t, j = TConfig().load(path), JConfig().load(path)
+        assert getattr(t, field) == getattr(j, field), path
+
+
+def test_viewer_and_dp_keys_parse_alike(tmp_path):
+    """The YAML keys of the viewer and of data parallelism parse into both
+    packages alike."""
+    path = tmp_path / "vis.yaml"
+    path.write_text(
+        "setting:\n  name: vis\n"
+        "mapper:\n  voxel_size_m: 0.5\n"
+        "eval:\n  o3d_vis_on: True\n  gui_backend: png\n"
+        "  mesh_default_on: True\n  mesh_freq_frame: 5\n"
+        "  sdf_default_on: True\n  sdf_freq_frame: 5\n"
+        "  sdf_slice_height: 0.4\n"
+        "tpu:\n  dp_on: True\n  dp_devices: 2\n")
+    t, j = TConfig().load(str(path)), JConfig().load(str(path))
+    assert (t.o3d_vis_on, t.gui_backend, t.mesh_default_on,
+            t.mesh_freq_frame, t.sdf_default_on, t.sdfslice_freq_frame,
+            t.sdf_slice_height, t.dp_on, t.dp_devices) == (
+        True, "png", True, 5, True, 5, 0.4, True, 2)
+    assert t.vis_sdf_res_m == j.vis_sdf_res_m
+    assert _fields(t) == _fields(j)
 
 
 COLOR_SEM_FIELDS = (

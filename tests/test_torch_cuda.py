@@ -488,3 +488,55 @@ def test_brick_cache_and_probe_match_the_cpu_on_the_card(cuda):
     assert int(out["cpu"][5].sum()) > 1000
     for a, b in zip(out["cpu"], out[str(cuda)]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_mesher_is_bit_equal_on_the_card(cuda):
+    """The mesher sharded over two replicas on the one card (`["cuda:0"] *
+    2`, parallel/dp.make_mesh) against the unsharded one on a seeded map
+    under weighted_first=False: the same grid and the same mesh bit for
+    bit, and the fused decode launched twice a grid batch."""
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.models import neural_points as npm
+    from pin_slam_tpu_torch.models.decoder import init_mlp_params
+    from pin_slam_tpu_torch.parallel import dp
+    from pin_slam_tpu_torch.slam import map_query as mq
+    from pin_slam_tpu_torch.slam.mesher import MeshConfig, Mesher
+
+    rng = np.random.RandomState(0)
+    p = np.zeros((20000, 3), np.float32)
+    p[:, :2] = rng.rand(20000, 2) * 20 - 10
+    p[:, 2] = 0.5 * np.sin(p[:, 0])
+    c = Config()
+    c.voxel_size_m, c.weighted_first = 0.3, False
+    c.finalize()
+    s = npm.init_map_state(1 << 15, 1 << 17, 8, device=cuda,
+                           with_btable=False)
+    s, _ = npm.insert_points(s, torch.as_tensor(p, device=cuda),
+                             torch.ones(len(p), dtype=torch.bool,
+                                        device=cuda), 0,
+                             torch.zeros(8, device=cuda), resolution=0.3,
+                             local_window_dist=100.0)
+    s.geo_features.normal_(0.0, 0.1, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    mlp = init_mlp_params(torch.Generator().manual_seed(2), 11, 64, 1, 1,
+                          True, device=cuda)
+    qp = mq.make_query_params(c)
+    mc = MeshConfig(mc_res_m=0.2, infer_bs=1 << 16, mesh_min_nn=4,
+                    min_cluster_vertices=0)
+    args = (s, s.geo_features, mlp)
+    plain = Mesher(qp, mc)
+    sharded = Mesher(qp, mc, mesh=dp.make_mesh(devices=[cuda] * 2))
+    origin, dims = np.array([-10.0, -10.0, -1.0]), (101, 101, 11)
+    n0 = tfd.LAUNCHES
+    sdf_a, nn_a = plain.query_sdf_grid(*args, origin, dims)
+    n1 = tfd.LAUNCHES
+    sdf_b, nn_b = sharded.query_sdf_grid(*args, origin, dims)
+    n2 = tfd.LAUNCHES
+    assert plain.decode_route == sharded.decode_route == "fused_decode"
+    assert n2 - n1 == 2 * (n1 - n0) == 2 * plain.n_batches
+    assert np.array_equal(sdf_a, sdf_b) and np.array_equal(nn_a, nn_b)
+    assert int((nn_a > 0).sum()) > 1000
+    va, fa = plain.recon_map_mesh(*args)
+    vb, fb = sharded.recon_map_mesh(*args)
+    assert np.array_equal(va, vb) and np.array_equal(fa, fb)

@@ -188,25 +188,95 @@ def test_full_fp32_is_pinned():
 
 
 def test_unported_options_raise():
-    """Data parallelism is the one option the port still refuses; the cell
-    and brick probes, incidence labels, the consistency loss and the
-    projective correction build a system (a brick system keeps the brick
-    cache, the others the dump brick alone)."""
+    """No option of the JAX package is refused any more: a `dp_on` system
+    builds, single-device without a second device (the JAX package's rule)
+    and over the replicas it is given; the cell and brick probes, incidence
+    labels, the consistency loss and the projective correction build a
+    system (a brick system keeps the brick cache, the others the dump brick
+    alone)."""
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.models.neural_points import has_btable
     from pin_slam_tpu_torch.slam.system import PinSLAMSystem
 
-    c = Config()
+    def small():
+        c = Config()
+        c.map_capacity, c.buffer_size = 1 << 12, 1 << 14
+        c.pool_capacity = 1 << 12
+        return c
+
+    c = small()
     c.dp_on = True
-    with pytest.raises(NotImplementedError, match="dp_on"):
-        PinSLAMSystem(c.finalize(), device="cpu")
+    assert PinSLAMSystem(c.finalize(), device="cpu").mesh is None
+    system = PinSLAMSystem(c, device="cpu", mesh=["cpu", "cpu"])
+    assert system.mesh == [torch.device("cpu")] * 2
     for field, value in (("probe_mode", "cells"), ("probe_mode", "brick"),
                          ("incidence_label_on", True),
                          ("consistency_loss_on", True),
                          ("proj_correction_on", True)):
-        c = Config()
-        c.map_capacity, c.buffer_size = 1 << 12, 1 << 14
-        c.pool_capacity = 1 << 12
+        c = small()
         setattr(c, field, value)
         system = PinSLAMSystem(c.finalize(), device="cpu")
         assert has_btable(system.state) == (value == "brick")
+        assert system.mesh is None
+
+
+def _jax_modules():
+    root = ROOT / "pin_slam_tpu"
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_jax_module_has_a_counterpart(rel):
+    """Every module of the JAX package has a port counterpart at the same
+    relative path (the Pallas decode's is ops/fused_decode.py)."""
+    rel = {"ops/pallas_decode.py": "ops/fused_decode.py"}.get(rel, rel)
+    assert (ROOT / "pin_slam_tpu_torch" / rel).is_file(), rel
+
+
+@pytest.mark.parametrize("mod", [
+    "utils.plots", "utils.visualizer", "gui", "gui.gui_utils",
+    "gui.slam_viewer", "gui.o3d_gui", "parallel", "parallel.dp",
+    "pin_slam_ros"])
+def test_viewer_dp_ros_modules_listed(mod):
+    """The modules of the last slice (plots, the visualizer and the viewer
+    process, data parallelism, the ROS node) are walked by the import
+    checks here, so none of them loads jax or the JAX package."""
+    assert f"pin_slam_tpu_torch.{mod}" in _modules()
+
+
+def test_new_modules_import_without_ros_open3d_and_matplotlib():
+    """With rospy, the ROS message packages, open3d and matplotlib blocked,
+    the viewer, plot, data-parallel and ROS modules import (they import
+    those where a call needs them), the viewer's package loads no torch
+    (its spawned process never touches the card), and the ROS node's
+    constructor raises ImportError naming rospy."""
+    blocked = ("rospy", "nav_msgs", "geometry_msgs", "sensor_msgs",
+               "tf2_ros", "std_srvs", "open3d", "matplotlib")
+    code = (
+        "import importlib, sys\n"
+        f"for b in {blocked!r}:\n"
+        "    sys.modules[b] = None\n"
+        "import pin_slam_tpu_torch.gui, pin_slam_tpu_torch.gui.o3d_gui\n"
+        "import pin_slam_tpu_torch.utils.visualizer\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+        "from pin_slam_tpu_torch.gui import o3d_gui\n"
+        "print('O3D', o3d_gui.available())\n"
+        "for m in ('utils.plots', 'parallel.dp', 'pin_slam_ros'):\n"
+        "    importlib.import_module('pin_slam_tpu_torch.' + m)\n"
+        "from pin_slam_tpu_torch.pin_slam_ros import PINSLAMRosNode\n"
+        "from pin_slam_tpu_torch.config import Config\n"
+        "try:\n"
+        "    PINSLAMRosNode(Config().finalize(), device='cpu')\n"
+        "except ImportError as e:\n"
+        "    print('RAISED', e)\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None "
+        "and k.split('.')[0] in "
+        "('jax', 'pin_slam_tpu', 'matplotlib', 'open3d', 'rospy'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "TORCH False" in lines and "O3D False" in lines, out.stdout
+    assert any(ln.startswith("RAISED") and "rospy" in ln for ln in lines)
+    assert "LOADED []" in lines, out.stdout

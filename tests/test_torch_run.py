@@ -198,13 +198,28 @@ def test_main_parses_the_argument_vector(monkeypatch):
 def test_the_card_is_the_default_and_the_viewer_raises(disk_dataset,
                                                        monkeypatch,
                                                        tmp_path):
-    _, _, cfg_path, _ = disk_dataset
+    """Without a card the entry point refuses before any output; with `-c
+    -v` the viewer process runs beside the frames and mirrors the last
+    frame to gui/latest.npz (two frames of the YAML with 3 training
+    iterations a frame and 6 on the first: the viewer is what is checked)."""
+    _, cfg, cfg_path, _ = disk_dataset
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun.main([str(cfg_path), "-o", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="viewer"):
-        trun.main([str(cfg_path), "-c", "-v", "-o", str(tmp_path)])
     assert not list(tmp_path.iterdir())     # refused before any output
+    cut = tmp_path.parent / "viewer_cut.yaml"
+    cut.write_text(yaml.safe_dump(dict(cfg, optimizer=dict(
+        cfg["optimizer"], iters=3, init_iter_ratio=2))))
+    trun.main([str(cut), "-c", "-v", "--range", "0", "2", "1",
+               "-o", str(tmp_path)])
+    run_dir, = tmp_path.iterdir()
+    latest = np.load(run_dir / "gui" / "latest.npz")
+    assert int(latest["frame_id"]) == 1
+    np.testing.assert_allclose(
+        latest["odom_poses"],
+        np.stack(read_kitti_format_poses(
+            str(run_dir / "odom_poses_kitti.txt"))), atol=1e-5)
+    assert (run_dir / "vis" / "neural_points_pca.ply").exists()
 
 
 @pytest.fixture(scope="module")
