@@ -734,11 +734,9 @@ def check_drift(err, bound=MAX_DRIFT_M):
 
 
 def phase_slice(frames, poses, dev):
-    """The main path on a default PinSLAMSystem (launches, fps, ATE), then
-    a second system with a device sync closing every stage, for the stage
-    medians. Syncing also moves the frame's training behind its host pull,
-    as the JAX reference's PIN_SYNC_TIMING does, so that run's fps is not
-    the user's."""
+    """The main path on a default PinSLAMSystem: launches, fps, ATE, and
+    the medians of its `timings` columns, the host time of each stage span
+    (`utils/tracing.py`), with no sync added."""
     import torch
     from pin_slam_tpu_torch.config import Config
     from pin_slam_tpu_torch.ops import fused_decode as fd
@@ -768,15 +766,10 @@ def phase_slice(frames, poses, dev):
     # frames may drift up to 1.8 m without a loss of track.
     check_drift(err)
 
-    synced = PinSLAMSystem(bench_config(Config), device=dev,
-                           sync_timing=True)
-    synced.set_gt_poses(poses)
-    _, synced_s = run_frames(synced, frames, poses, "synced")
-    stages = np.median(np.asarray(synced.timings)[WARMUP:], 0) * 1e3
+    stages = np.median(np.asarray(system.timings)[WARMUP:], 0) * 1e3
     labels = ["preprocess", "odometry", "pgo", "map-prep", "map-opt"]
-    log(f"[synced] steady state: {synced_s * 1e3:.1f} ms/frame = "
-        f"{1 / synced_s:.3f} fps; stage medians: " + " ".join(
-            f"{l}={v:.1f}ms" for l, v in zip(labels, stages)))
+    log("[slice] host stage medians: " + " ".join(
+        f"{l}={v:.1f}ms" for l, v in zip(labels, stages)))
     return launches, dict(fps=1 / steady_s, ms=steady_s * 1e3, ate_m=ate,
                           stages=stages, system=system)
 

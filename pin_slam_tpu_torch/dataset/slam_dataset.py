@@ -22,6 +22,7 @@ import numpy as np
 from pin_slam_tpu_torch.config import Config
 from pin_slam_tpu_torch.dataset import io as pcio
 from pin_slam_tpu_torch.ops.transforms import np_slerp_rotmats
+from pin_slam_tpu_torch.utils import tracing
 from pin_slam_tpu_torch.utils.eval_traj import absolute_error, relative_error
 
 SUPPORTED_EXT = (".bin", ".ply", ".pcd", ".npy")
@@ -149,6 +150,7 @@ class SLAMDataset:
     # ------------------------------------------------------------ deskewing
 
     @staticmethod
+    @tracing.spanned("dataset.deskew")
     def deskew(points: np.ndarray, ts: np.ndarray,
                last_tran: np.ndarray, ts_mid_pose: float = 0.5) -> np.ndarray:
         """Constant-velocity motion undistortion (reference:
@@ -254,6 +256,7 @@ class SLAMDataset:
         return metrics
 
 
+@tracing.spanned("dataset.correct")
 def intrinsic_correct(points: np.ndarray, correct_deg: float) -> np.ndarray:
     """KITTI vertical-angle correction (reference:
     dataset/slam_dataset.py:1251-1270)."""

@@ -26,6 +26,7 @@ from pin_slam_tpu_torch.ops.transforms import (
 )
 from pin_slam_tpu_torch.slam import map_query as mq
 from pin_slam_tpu_torch.slam import mapper as mp
+from pin_slam_tpu_torch.utils import tracing
 
 SURFACE_SAMPLE_CAP = 1 << 18
 
@@ -126,6 +127,7 @@ def make_ba_loop(qp: mq.QueryParams, *, n_iters: int, bs: int, window: int,
     return run
 
 
+@tracing.spanned("ba.run", is_stage=True)
 def run_bundle_adjustment(system, frame_id: int,
                           draws: Optional[torch.Tensor] = None) -> float:
     """Bundle adjustment over the last min(ba_frame, frame_id + 1) frames of

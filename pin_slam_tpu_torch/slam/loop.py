@@ -13,6 +13,10 @@ updates the poses and schedules a training boost.
 
 Host pulls per closure: the local-map context (mask count and points, when
 `local_map_context` is on) and one batched pull of the registration result.
+
+Spans (`utils/tracing.py`): `loop.after_frame` holds `loop.descriptor`,
+`loop.graph`, `loop.detect` and, for a candidate, `loop.close` with
+`loop.register`, `loop.pgo` and `loop.deform`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from pin_slam_tpu_torch.slam.loop_detector import (
     detect_local_loop,
 )
 from pin_slam_tpu_torch.slam.pgo import PoseGraphManager
+from pin_slam_tpu_torch.utils import tracing
 
 
 class LoopPgoManager:
@@ -91,6 +96,7 @@ class LoopPgoManager:
 
     # --------------------------------------------------------------- per-frame
 
+    @tracing.spanned("loop.after_frame", is_stage=True)
     def after_frame(self, frame_id: int, points: np.ndarray) -> bool:
         """The loop-closure block after odometry and mapping of `frame_id`.
         Returns True if a loop was closed and poses and map corrected."""
@@ -100,32 +106,35 @@ class LoopPgoManager:
         valid_flag = not (sysm.lose_track or sysm.stop_status)
         self._ctx_pc_global = None
         self._ctx_features = None
-        if c.local_map_context and c.global_loop_on and \
-                frame_id >= c.local_map_context_latency:
-            # local-map context: descriptor from the neural points around
-            # the (delayed) frame, in that frame's sensor frame
-            lm_fid = frame_id - c.local_map_context_latency
-            pts_w, feats, lm_pose = self._local_map_context(lm_fid)
-            Tinv = np.linalg.inv(lm_pose)
-            pts_local = pts_w @ Tinv[:3, :3].T + Tinv[:3, 3]
-            self.detector.add_node(lm_fid, pts_local, feats, valid_flag)
-            self._ctx_pc_global = pts_w
-            self._ctx_features = feats
-        else:
-            # scan context: descriptor from the current scan (sensor frame)
-            self.detector.add_node(frame_id, points[:, :3],
-                                   valid_flag=valid_flag)
+        with tracing.span("loop.descriptor"):
+            if c.local_map_context and c.global_loop_on and \
+                    frame_id >= c.local_map_context_latency:
+                # local-map context: descriptor from the neural points
+                # around the (delayed) frame, in that frame's sensor frame
+                lm_fid = frame_id - c.local_map_context_latency
+                pts_w, feats, lm_pose = self._local_map_context(lm_fid)
+                Tinv = np.linalg.inv(lm_pose)
+                pts_local = pts_w @ Tinv[:3, :3].T + Tinv[:3, 3]
+                self.detector.add_node(lm_fid, pts_local, feats, valid_flag)
+                self._ctx_pc_global = pts_w
+                self._ctx_features = feats
+            else:
+                # scan context: descriptor from the current scan (sensor
+                # frame)
+                self.detector.add_node(frame_id, points[:, :3],
+                                       valid_flag=valid_flag)
 
-        self.pgm.add_frame_node(frame_id, sysm.pgo_poses[frame_id])
-        if frame_id == 0:
-            return False
-        self.pgm.add_odometry_factor(
-            frame_id, frame_id - 1, sysm.last_odom_tran,
-            cov=sysm.last_tracking.cov.cpu().numpy()
-            if (c.use_reg_cov_mat and sysm.last_tracking is not None)
-            else None)
-        travel_dist = sysm.travel_dist[: frame_id + 1]
-        self.pgm.estimate_drift(travel_dist, frame_id)
+        with tracing.span("loop.graph"):
+            self.pgm.add_frame_node(frame_id, sysm.pgo_poses[frame_id])
+            if frame_id == 0:
+                return False
+            self.pgm.add_odometry_factor(
+                frame_id, frame_id - 1, sysm.last_odom_tran,
+                cov=sysm.last_tracking.cov.cpu().numpy()
+                if (c.use_reg_cov_mat and sysm.last_tracking is not None)
+                else None)
+            travel_dist = sysm.travel_dist[: frame_id + 1]
+            self.pgm.estimate_drift(travel_dist, frame_id)
 
         if frame_id - self.pgm.last_loop_idx <= c.pgo_freq or \
                 sysm.stop_status:
@@ -136,20 +145,22 @@ class LoopPgoManager:
         if not np.any(cand_mask):
             return False
 
-        pgo_poses = sysm.pgo_poses[: frame_id + 1]
-        loop_id, loop_dist, loop_transform = detect_local_loop(
-            pgo_poses, cand_mask, self.pgm.drift_radius, frame_id,
-            self.loop_reg_failed_count, c.local_loop_dist_thre,
-            c.local_loop_dist_thre * 3.0, self.silence)
-        self._candidate_kind = "local"
-        if loop_id is None and c.global_loop_on:
-            loop_id, _, loop_transform = self.detector.detect_global_loop(
-                pgo_poses,
-                self.pgm.drift_radius * c.loop_dist_drift_ratio_thre,
-                cand_mask,
-                context_pc_global=self._ctx_pc_global,
-                context_features=self._ctx_features)
-            self._candidate_kind = "global"
+        with tracing.span("loop.detect"):
+            pgo_poses = sysm.pgo_poses[: frame_id + 1]
+            loop_id, loop_dist, loop_transform = detect_local_loop(
+                pgo_poses, cand_mask, self.pgm.drift_radius, frame_id,
+                self.loop_reg_failed_count, c.local_loop_dist_thre,
+                c.local_loop_dist_thre * 3.0, self.silence)
+            self._candidate_kind = "local"
+            if loop_id is None and c.global_loop_on:
+                detect_global = self.detector.detect_global_loop
+                loop_id, _, loop_transform = detect_global(
+                    pgo_poses,
+                    self.pgm.drift_radius * c.loop_dist_drift_ratio_thre,
+                    cand_mask,
+                    context_pc_global=self._ctx_pc_global,
+                    context_features=self._ctx_features)
+                self._candidate_kind = "global"
         if loop_id is None:
             return False
         if not self.detector.valid_flags.get(int(loop_id), False):
@@ -204,19 +215,21 @@ class LoopPgoManager:
 
     # -------------------------------------------------------------- loop close
 
+    @tracing.spanned("loop.close")
     def _close_loop(self, frame_id: int, loop_id: int,
                     loop_transform: np.ndarray, points: np.ndarray) -> bool:
         c = self.config
         sysm = self.system
 
-        # 1. re-anchor the hash table at the loop frame so that the
-        #    registration sees the old geometry
-        self._rehash(loop_id)
+        with tracing.span("loop.register"):
+            # 1. re-anchor the hash table at the loop frame so that the
+            #    registration sees the old geometry
+            self._rehash(loop_id)
 
-        # 2. scan-to-map refinement from the loop's initial guess
-        pose_init = sysm.pgo_poses[loop_id] @ loop_transform
-        reg_valid, pose_refined, cov, residual_cm, valid_count = \
-            self._register(points, pose_init, loop_id)
+            # 2. scan-to-map refinement from the loop's initial guess
+            pose_init = sysm.pgo_poses[loop_id] @ loop_transform
+            reg_valid, pose_refined, cov, residual_cm, valid_count = \
+                self._register(points, pose_init, loop_id)
 
         if reg_valid:
             # refinement-deviation gate: the registration may move the pose
@@ -236,10 +249,11 @@ class LoopPgoManager:
         if reg_valid:
             loop_transform = np.linalg.inv(
                 sysm.pgo_poses[loop_id]) @ pose_refined
-            reg_valid = self.pgm.add_loop_factor(
-                frame_id, loop_id, loop_transform,
-                cov=cov if c.use_reg_cov_mat else None)
-            reg_valid = reg_valid and self.pgm.optimize_pose_graph()
+            with tracing.span("loop.pgo"):
+                reg_valid = self.pgm.add_loop_factor(
+                    frame_id, loop_id, loop_transform,
+                    cov=cov if c.use_reg_cov_mat else None)
+                reg_valid = reg_valid and self.pgm.optimize_pose_graph()
 
         if not reg_valid:
             # restore the hash anchored at the current frame
@@ -272,9 +286,10 @@ class LoopPgoManager:
                   f"valid {valid_count}, moved {moved:.3f} m; "
                   f"pgo diff |t| max {dmag.max():.3f} m "
                   f"(argmax {int(dmag.argmax())}), cur {dmag[frame_id]:.3f} m")
-        diffs = torch.as_tensor(pose_diff.astype(np.float32),
-                                device=sysm.device)
-        self._apply_deformation(diffs, frame_id)
+        with tracing.span("loop.deform"):
+            diffs = torch.as_tensor(pose_diff.astype(np.float32),
+                                    device=sysm.device)
+            self._apply_deformation(diffs, frame_id)
         sysm.post_loop_iter_boost_pending = max(
             sysm.post_loop_iter_boost_pending, c.post_loop_iter_boost)
 

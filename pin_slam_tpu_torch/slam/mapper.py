@@ -20,6 +20,10 @@ correction.
 * Colour features train beside the geometry features, and the colour and
   semantic decoders beside the SDF decoder; all three decoders freeze
   together (`train_decoder=False`).
+* A training run's spans (`utils/tracing.py`): `mapper.setup` (draws,
+  copies, Adam), one `mapper.iter` per iteration holding `mapper.loss`,
+  `mapper.backward`, `mapper.step` and `mapper.certainty`, then
+  `mapper.writeback`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from pin_slam_tpu_torch.ops.scatter import index_add_exact
 from pin_slam_tpu_torch.ops.voxel import compact_rows
 from pin_slam_tpu_torch.parallel import dp
 from pin_slam_tpu_torch.slam import map_query as mq
+from pin_slam_tpu_torch.utils import tracing
 
 PROBE_CHUNK = 196608   # queries per k-NN call in the training probe
 
@@ -564,71 +569,74 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
              use_new: torch.Tensor, lset, draws=None,
              lf: Optional[mq.LocalFilter] = None,
              terms: Optional[dict] = None):
-        dev = state.positions.device
-        C = state.capacity
-        whole = lset is None
-        devs = [dev] if replicas is None else replicas
-        R = len(devs)
-        # each replica's map, pool, local set and filter on its device
-        # (the caller's tensors where they already are there)
-        reps = [dict(state=dp.replicate(state, d) if whole else None,
-                     pool=dp.replicate(pool, d), lset=dp.replicate(lset, d),
-                     lf=dp.replicate(lf, d)) for d in devs]
-        if draws is None:
-            gens = ([generator] if replicas is None
-                    else dp.replica_generators(generator, devs))
-            draws = [draw_train_indices(g, rp["pool"], n_iters=n_iters,
-                                        bs=bs, bs_new=bs_new,
-                                        subset_hist=subset_hist,
-                                        whole_map=whole, cons_m=cons_m)
-                     for g, rp in zip(gens, reps)]
-        elif replicas is None:
-            draws = [draws]
-        draws = [dp.replicate(d, dv) for d, dv in zip(draws, devs)]
-        # the trained feature rows: the local set's, or the whole map's
-        rows_of = (lambda a: a) if whole else (lambda a: a[lset.gidx])
-        lfeat = rows_of(params["geo_features"]).detach().clone()
-        lfeat.requires_grad_(True)
-        lcfeat = None
-        if color_on and params.get("color_features") is not None:
-            lcfeat = rows_of(params["color_features"]).detach().clone()
-            lcfeat.requires_grad_(True)
-        mlps = {}
-        for name in ("geo_mlp", "color_mlp", "sem_mlp"):
-            if params.get(name) is None:
-                continue
-            mlps[name] = {
-                k: [t.detach().clone().requires_grad_(train_decoder)
-                    for t in params[name][k]] for k in ("w", "b")}
+        with tracing.span("mapper.setup"):
+            dev = state.positions.device
+            C = state.capacity
+            whole = lset is None
+            devs = [dev] if replicas is None else replicas
+            R = len(devs)
+            # each replica's map, pool, local set and filter on its device
+            # (the caller's tensors where they already are there)
+            reps = [dict(state=dp.replicate(state, d) if whole else None,
+                         pool=dp.replicate(pool, d),
+                         lset=dp.replicate(lset, d),
+                         lf=dp.replicate(lf, d)) for d in devs]
+            if draws is None:
+                gens = ([generator] if replicas is None
+                        else dp.replica_generators(generator, devs))
+                draws = [draw_train_indices(g, rp["pool"], n_iters=n_iters,
+                                            bs=bs, bs_new=bs_new,
+                                            subset_hist=subset_hist,
+                                            whole_map=whole, cons_m=cons_m)
+                         for g, rp in zip(gens, reps)]
+            elif replicas is None:
+                draws = [draws]
+            draws = [dp.replicate(d, dv) for d, dv in zip(draws, devs)]
+            # the trained feature rows: the local set's, or the whole map's
+            rows_of = (lambda a: a) if whole else (lambda a: a[lset.gidx])
+            lfeat = rows_of(params["geo_features"]).detach().clone()
+            lfeat.requires_grad_(True)
+            lcfeat = None
+            if color_on and params.get("color_features") is not None:
+                lcfeat = rows_of(params["color_features"]).detach().clone()
+                lcfeat.requires_grad_(True)
+            mlps = {}
+            for name in ("geo_mlp", "color_mlp", "sem_mlp"):
+                if params.get(name) is None:
+                    continue
+                mlps[name] = {
+                    k: [t.detach().clone().requires_grad_(train_decoder)
+                        for t in params[name][k]] for k in ("w", "b")}
 
-        def trainable(feat, cfeat, ms):
-            out = [feat] + ([cfeat] if cfeat is not None else [])
-            if train_decoder:
-                for m in ms.values():
-                    out += m["w"] + m["b"]
-            return out
+            def trainable(feat, cfeat, ms):
+                out = [feat] + ([cfeat] if cfeat is not None else [])
+                if train_decoder:
+                    for m in ms.values():
+                        out += m["w"] + m["b"]
+                return out
 
-        train_vars = trainable(lfeat, lcfeat, mlps)
-        # a fresh Adam per frame, matched to optax.adam(lr, eps)
-        opt = torch.optim.Adam(train_vars, lr=lr, betas=(0.9, 0.999),
-                               eps=adam_eps)
+            train_vars = trainable(lfeat, lcfeat, mlps)
+            # a fresh Adam per frame, matched to optax.adam(lr, eps)
+            opt = torch.optim.Adam(train_vars, lr=lr, betas=(0.9, 0.999),
+                                   eps=adam_eps)
 
-        # each replica's own leaves: aliases of the trained tensors on
-        # their device (Adam's in-place step reaches them), copies on
-        # another device
-        def leaf(t, d):
-            return t.detach().to(d).requires_grad_(t.requires_grad)
-        rvars = [(leaf(lfeat, d), None if lcfeat is None else leaf(lcfeat, d),
-                  {n: {k: [leaf(t, d) for t in m[k]] for k in ("w", "b")}
-                   for n, m in mlps.items()}) for d in devs]
-        for rp, dr, d in zip(reps, draws, devs):
-            # min(new_count, bs_new) fresh slots per iteration, none when
-            # the new-sample mix is disabled
-            rp["slot"] = (use_new.to(d) & (torch.arange(bs_new, device=d)
-                                           < rp["pool"].new_count))
-            rp["batch_of"], rp["sub"] = batches(rp["pool"], rp["lset"], dr,
-                                                rp["slot"])
-            rp["cons_u"] = dr.get("cons_u")
+            # each replica's own leaves: aliases of the trained tensors on
+            # their device (Adam's in-place step reaches them), copies on
+            # another device
+            def leaf(t, d):
+                return t.detach().to(d).requires_grad_(t.requires_grad)
+            rvars = [(leaf(lfeat, d),
+                      None if lcfeat is None else leaf(lcfeat, d),
+                      {n: {k: [leaf(t, d) for t in m[k]] for k in ("w", "b")}
+                       for n, m in mlps.items()}) for d in devs]
+            for rp, dr, d in zip(reps, draws, devs):
+                # min(new_count, bs_new) fresh slots per iteration, none when
+                # the new-sample mix is disabled
+                rp["slot"] = (use_new.to(d) & (torch.arange(bs_new, device=d)
+                                               < rp["pool"].new_count))
+                rp["batch_of"], rp["sub"] = batches(rp["pool"], rp["lset"],
+                                                    dr, rp["slot"])
+                rp["cons_u"] = dr.get("cons_u")
 
         def replica_loss(r, i):
             rp, (feat, cfeat, rm) = reps[r], rvars[r]
@@ -647,92 +655,100 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         cons_terms = []
         contribs = []
         for i in range(n_iters):
-            # the replicas' gradients summed on the first device in replica
-            # order and averaged: one Adam step for every replica
-            gsum, lsum, csum, auxs = None, None, None, []
-            for r in range(R):
-                loss_r, aux_r = replica_loss(r, i)
-                g = torch.autograd.grad(loss_r, trainable(*rvars[r]),
-                                        allow_unused=True)
-                g = [None if x is None else x.to(dev) for x in g]
-                gsum = g if gsum is None else [
-                    b if a is None else a if b is None else a + b
-                    for a, b in zip(gsum, g)]
-                lr_ = loss_r.detach().to(dev)
-                cr_ = aux_r["consistency_loss"].detach().to(dev)
-                lsum = lr_ if lsum is None else lsum + lr_
-                csum = cr_ if csum is None else csum + cr_
-                auxs.append(dp.replicate(aux_r, dev))
-            opt.zero_grad(set_to_none=True)
-            for p, g in zip(train_vars, gsum):
-                p.grad = None if g is None else g / R
-            opt.step()
-            with torch.no_grad():
-                for r, d in enumerate(devs):
-                    if d != dev:
-                        for a, b in zip(trainable(*rvars[r]), train_vars):
-                            a.copy_(b)
-            losses.append(lsum / R)
-            cons_terms.append(csum / R)
-            if whole:
-                # the certainty and update timestamps of every iteration's
-                # neighbors, before the next iteration's query
-                with torch.no_grad():
-                    qn = [a["qn"] for a in auxs]
-                    npm.accumulate_certainty(
-                        state, npm.QueryNeighbors(
-                            idx=torch.cat([q.idx for q in qn]),
-                            dist2=torch.cat([q.dist2 for q in qn]),
-                            valid=torch.cat([q.valid for q in qn]),
-                            nn_count=torch.cat([q.nn_count for q in qn])),
-                        torch.cat([a["w"].detach() for a in auxs]),
-                        torch.cat([a["ts"] for a in auxs]))
-            elif not use_subset:
-                contribs += [iteration_contribs(a, lset.cap) for a in auxs]
+            with tracing.span("mapper.iter"):
+                # the replicas' gradients summed on the first device in
+                # replica order and averaged: one Adam step for every replica
+                gsum, lsum, csum, auxs = None, None, None, []
+                for r in range(R):
+                    with tracing.span("mapper.loss"):
+                        loss_r, aux_r = replica_loss(r, i)
+                    with tracing.span("mapper.backward"):
+                        g = torch.autograd.grad(loss_r, trainable(*rvars[r]),
+                                                allow_unused=True)
+                        g = [None if x is None else x.to(dev) for x in g]
+                        gsum = g if gsum is None else [
+                            b if a is None else a if b is None else a + b
+                            for a, b in zip(gsum, g)]
+                        lr_ = loss_r.detach().to(dev)
+                        cr_ = aux_r["consistency_loss"].detach().to(dev)
+                        lsum = lr_ if lsum is None else lsum + lr_
+                        csum = cr_ if csum is None else csum + cr_
+                        auxs.append(dp.replicate(aux_r, dev))
+                with tracing.span("mapper.step"):
+                    opt.zero_grad(set_to_none=True)
+                    for p, g in zip(train_vars, gsum):
+                        p.grad = None if g is None else g / R
+                    opt.step()
+                    with torch.no_grad():
+                        for r, d in enumerate(devs):
+                            if d != dev:
+                                for a, b in zip(trainable(*rvars[r]),
+                                                train_vars):
+                                    a.copy_(b)
+                    losses.append(lsum / R)
+                    cons_terms.append(csum / R)
+                if whole:
+                    # the certainty and update timestamps of every
+                    # iteration's neighbors, before the next iteration's query
+                    with tracing.span("mapper.certainty"), torch.no_grad():
+                        qn = [a["qn"] for a in auxs]
+                        npm.accumulate_certainty(
+                            state, npm.QueryNeighbors(
+                                idx=torch.cat([q.idx for q in qn]),
+                                dist2=torch.cat([q.dist2 for q in qn]),
+                                valid=torch.cat([q.valid for q in qn]),
+                                nn_count=torch.cat([q.nn_count
+                                                    for q in qn])),
+                            torch.cat([a["w"].detach() for a in auxs]),
+                            torch.cat([a["ts"] for a in auxs]))
+                elif not use_subset:
+                    with tracing.span("mapper.certainty"):
+                        contribs += [iteration_contribs(a, lset.cap)
+                                     for a in auxs]
 
-        if terms is not None:
-            terms["consistency_loss"] = torch.stack(cons_terms)
-        new_params = dict(params)
-        for name, m in mlps.items():
-            new_params[name] = {k: [t.detach() for t in m[k]]
-                                for k in ("w", "b")}
-        if whole:
-            # the trained whole-map features replace the map's in place
-            with torch.no_grad():
-                state.geo_features.copy_(lfeat.detach())
+        with tracing.span("mapper.writeback"):
+            if terms is not None:
+                terms["consistency_loss"] = torch.stack(cons_terms)
+            new_params = dict(params)
+            for name, m in mlps.items():
+                new_params[name] = {k: [t.detach() for t in m[k]]
+                                    for k in ("w", "b")}
+            if whole:
+                # the trained whole-map features replace the map's in place
+                with torch.no_grad():
+                    state.geo_features.copy_(lfeat.detach())
+                    if lcfeat is not None:
+                        state.color_features.copy_(lcfeat.detach())
+                new_params["geo_features"] = state.geo_features
                 if lcfeat is not None:
-                    state.color_features.copy_(lcfeat.detach())
+                    new_params["color_features"] = state.color_features
+                return new_params, state, torch.stack(losses)
+
+            if use_subset:
+                contribs = [dp.replicate(subset_contribs(
+                    rp["sub"], rp["lset"], rp["slot"]), dev) for rp in reps]
+            ci = torch.cat([c[0].reshape(-1) for c in contribs])
+            cw = torch.cat([c[1].reshape(-1) for c in contribs])
+            cts = torch.cat([c[2].reshape(-1) for c in contribs])
+            cert_l, ts_l = accumulate_certainty_sorted(
+                lset.cert, lset.ts_upd, ci, cw, cts, lset.cap)
+
+            # scatter the trained local rows back once (padded rows all point
+            # at the dump row C, which is reset afterwards)
+            gidx = lset.gidx
+            with torch.no_grad():
+                state.geo_features[gidx] = lfeat.detach()
+                state.geo_features[C] = 0.0
+                if lcfeat is not None:
+                    state.color_features[gidx] = lcfeat.detach()
+                    state.color_features[C] = 0.0
+                state.certainty[gidx] = cert_l
+                state.certainty[C] = 0.0
+                state.ts_update[gidx] = ts_l
+                state.ts_update[C] = 0
             new_params["geo_features"] = state.geo_features
             if lcfeat is not None:
                 new_params["color_features"] = state.color_features
             return new_params, state, torch.stack(losses)
-
-        if use_subset:
-            contribs = [dp.replicate(subset_contribs(rp["sub"], rp["lset"],
-                                                     rp["slot"]), dev)
-                        for rp in reps]
-        ci = torch.cat([c[0].reshape(-1) for c in contribs])
-        cw = torch.cat([c[1].reshape(-1) for c in contribs])
-        cts = torch.cat([c[2].reshape(-1) for c in contribs])
-        cert_l, ts_l = accumulate_certainty_sorted(
-            lset.cert, lset.ts_upd, ci, cw, cts, lset.cap)
-
-        # scatter the trained local rows back once (padded rows all point
-        # at the dump row C, which is reset afterwards)
-        gidx = lset.gidx
-        with torch.no_grad():
-            state.geo_features[gidx] = lfeat.detach()
-            state.geo_features[C] = 0.0
-            if lcfeat is not None:
-                state.color_features[gidx] = lcfeat.detach()
-                state.color_features[C] = 0.0
-            state.certainty[gidx] = cert_l
-            state.certainty[C] = 0.0
-            state.ts_update[gidx] = ts_l
-            state.ts_update[C] = 0
-        new_params["geo_features"] = state.geo_features
-        if lcfeat is not None:
-            new_params["color_features"] = state.color_features
-        return new_params, state, torch.stack(losses)
 
     return loop

@@ -45,11 +45,13 @@ maintains one under cells too, which no probe of that mode reads).
 Host syncs per frame: one per GN iteration of the tracker (its stop flag)
 and one batched pull after the mapping dispatches (pose, validity,
 iteration count, overflow counts).
+
+Each frame is a `frame` span of `utils/tracing.py`, with stage spans
+inside it; `timings` is read from the stage spans (`TIMING_COLUMNS`).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -78,6 +80,13 @@ from pin_slam_tpu_torch.slam import map_query as mq
 from pin_slam_tpu_torch.slam import mapper as mp
 from pin_slam_tpu_torch.slam import tracker as tk
 from pin_slam_tpu_torch.slam.ba import run_bundle_adjustment
+from pin_slam_tpu_torch.utils import tracing
+
+# the stage spans summed into each `timings` column: preprocess, odometry,
+# pgo, map-prep, map-opt
+TIMING_COLUMNS = (("frame.preprocess",), ("frame.odometry", "frame.pull"),
+                  ("loop.after_frame",), ("frame.map_update",),
+                  ("mapper.train", "ba.run"))
 
 
 def compute_init_guess(uniform_motion: bool, motion_model: str,
@@ -121,8 +130,7 @@ class PinSLAMSystem:
     """Host-side orchestrator owning all device state."""
 
     def __init__(self, config: Config, device=None,
-                 generator: Optional[torch.Generator] = None,
-                 sync_timing: bool = False, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.config = c = config
         self.device = resolve_device(device)
         # data parallelism (`dp_on`): the replica devices of the training
@@ -138,11 +146,6 @@ class PinSLAMSystem:
         # one explicit generator drives every random draw of the system
         self.gen = generator if generator is not None else \
             torch.Generator(device=self.device).manual_seed(c.seed)
-        # synchronize after each stage so `timings` attribute device time
-        # to the right stage (profiling). As in the JAX reference, this also
-        # runs the frame's training after its host pull instead of before,
-        # so a synced run's frame time is not the default loop's.
-        self._sync_timing = sync_timing
         self.qp = mq.make_query_params(c)
         # kept for the JAX package's API: the offset rotation by point
         # orientations is always on (identity until the first deformation)
@@ -213,6 +216,7 @@ class PinSLAMSystem:
         self.last_train_pts = None
         self.last_train_n = None
         # per-frame [preprocess, odometry, pgo, map-prep, map-opt] seconds
+        # of host time, from the frame's stage spans (TIMING_COLUMNS)
         self.timings = []
         self.new_obs_ratio = 1.0
         self.adaptive_iter_offset = 0
@@ -305,10 +309,6 @@ class PinSLAMSystem:
         self.params["geo_features"] = self.state.geo_features
         if self.state.color_features is not None:
             self.params["color_features"] = self.state.color_features
-
-    def _sync(self):
-        if self._sync_timing and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def build_lset_track(self, travel, cur_ts, sensor_pos, reboot_ts):
         """Tracking local set (travel window + sensor radius) and its
@@ -731,10 +731,21 @@ class PinSLAMSystem:
         passes the same cloud as frame_id+1's `points`.
         `loop_hook(frame_id)` runs after the frame's host pull (the loop
         closure + PGO slot, `timings` column 2). Returns the pose estimate
-        (4x4 float64)."""
+        (4x4 float64). The frame runs inside a `frame` span; its row of
+        `timings` sums its stage spans (TIMING_COLUMNS)."""
+        with tracing.frame(frame_id):
+            pose = self._process_frame(frame_id, points, loop_hook,
+                                       sem_labels, next_points,
+                                       next_sem_labels)
+        st = tracing.TRACER.stage_s
+        self.timings.append([sum(st.get(n, 0.0) for n in col)
+                             for col in TIMING_COLUMNS])
+        return pose
+
+    def _process_frame(self, frame_id, points, loop_hook, sem_labels,
+                       next_points, next_sem_labels):
         c = self.config
         dev = self.device
-        t0 = time.time()
 
         # ---- initial guess
         if frame_id == 0:
@@ -760,128 +771,131 @@ class PinSLAMSystem:
             self.cur_pose_ref = init_guess
             self.travel_dist[frame_id] = self.travel_dist[max(frame_id - 1,
                                                               0)]
-            self.timings.append([0.0] * 5)
             self.cur_frame = frame_id + 1
             return init_guess.copy()
 
         # ---- I. preprocess (reuse the one dispatched ahead, if any)
-        if self._prefetch is not None and self._prefetch[0] == frame_id:
-            pre = self._prefetch[1]
-        else:
-            pre = self._run_preprocess(points, sem_labels)
-        self._prefetch = None
+        with tracing.stage("frame.preprocess"):
+            if self._prefetch is not None and self._prefetch[0] == frame_id:
+                pre = self._prefetch[1]
+            else:
+                pre = self._run_preprocess(points, sem_labels)
+            self._prefetch = None
         (train_pts, train_attr, train_n, src_pts, src_attr, src_n,
          train_total, src_total) = pre
-        self._sync()
-        t1 = time.time()
 
         # ---- II. odometry
-        td_host = self._tensor(self.travel_dist[: self.max_frames])
-        if frame_id > 0 and c.track_on:
-            anchor = self.last_pose_ref[:3, 3].copy()
-            T_init = init_guess.copy()
-            T_init[:3, 3] -= anchor
-            T_init_d = self._tensor(T_init)
-            anchor_d = self._tensor(anchor)
-            if not self._use_join:
-                # the whole map through its hash table, every GN iteration;
-                # localization mode drops the travel window
-                res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
-                    self.params["geo_features"], src_pts, src_n, T_init_d,
-                    td_host, anchor_d, frame_id, None,
-                    cfeats=self.params.get("color_features"),
-                    src_attr=src_attr, state=self.state,
-                    lf=None if self.localization_mode else self._lf(
-                        frame_id - 1,
-                        sensor_pos=self.last_pose_ref[:3, 3] - anchor))
-            elif self.localization_mode:
-                # the frozen map's join set, built once by load_map
-                res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
-                    self._loc_feats, src_pts, src_n, T_init_d, td_host,
-                    anchor_d, frame_id, self._loc_lset,
-                    cfeats=self._loc_cfeats, src_attr=src_attr)
-            elif self._cur_lset is not None and not self._use_color_track:
-                # register against the previous frame's post-train local set
-                res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
-                    self._cur_track_feats, src_pts, src_n, T_init_d, td_host,
-                    anchor_d, frame_id, self._cur_lset)
+        with tracing.stage("frame.odometry"):
+            td_host = self._tensor(self.travel_dist[: self.max_frames])
+            if frame_id > 0 and c.track_on:
+                anchor = self.last_pose_ref[:3, 3].copy()
+                T_init = init_guess.copy()
+                T_init[:3, 3] -= anchor
+                T_init_d = self._tensor(T_init)
+                anchor_d = self._tensor(anchor)
+                if not self._use_join:
+                    # the whole map through its hash table, every GN iteration;
+                    # localization mode drops the travel window
+                    res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
+                        self.params["geo_features"], src_pts, src_n, T_init_d,
+                        td_host, anchor_d, frame_id, None,
+                        cfeats=self.params.get("color_features"),
+                        src_attr=src_attr, state=self.state,
+                        lf=None if self.localization_mode else self._lf(
+                            frame_id - 1,
+                            sensor_pos=self.last_pose_ref[:3, 3] - anchor))
+                elif self.localization_mode:
+                    # the frozen map's join set, built once by load_map
+                    res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
+                        self._loc_feats, src_pts, src_n, T_init_d, td_host,
+                        anchor_d, frame_id, self._loc_lset,
+                        cfeats=self._loc_cfeats, src_attr=src_attr)
+                elif self._cur_lset is not None and not self._use_color_track:
+                    # register against the previous frame's post-train
+                    # local set
+                    res, T32_dev, td_dev, mapok_dev = self.track_chain_cached(
+                        self._cur_track_feats, src_pts, src_n, T_init_d,
+                        td_host, anchor_d, frame_id, self._cur_lset)
+                else:
+                    res, T32_dev, td_dev, mapok_dev = self.track_chain(
+                        src_pts, src_n, T_init_d, anchor_d, frame_id, td_host,
+                        self._tensor(self.last_pose_ref[:3, 3]),
+                        src_attr=src_attr)
+                self.last_tracking = res
+                tracked = True
+            elif frame_id > 0:
+                if self.gt_poses is None:
+                    raise ValueError("mapping mode requires gt poses")
+                self._update_odom_pose(frame_id, init_guess)
+                tracked = False
             else:
-                res, T32_dev, td_dev, mapok_dev = self.track_chain(
-                    src_pts, src_n, T_init_d, anchor_d, frame_id, td_host,
-                    self._tensor(self.last_pose_ref[:3, 3]),
-                    src_attr=src_attr)
-            self.last_tracking = res
-            tracked = True
-        elif frame_id > 0:
-            if self.gt_poses is None:
-                raise ValueError("mapping mode requires gt poses")
-            self._update_odom_pose(frame_id, init_guess)
-            tracked = False
-        else:
-            self.cur_pose_ref = init_guess
-            tracked = False
-        self._sync()
-        t2 = time.time()
-
-        # ---- reboot check (uses the lose-track counter of the previous
-        # frame so mapping needs no tracker result on the host)
-        system_rebooted = False
-        if self.consecutive_lose_track_frame >= c.reboot_frame_thre:
-            self.pool.count = torch.zeros_like(self.pool.count)
-            self.pool.new_count = torch.zeros_like(self.pool.new_count)
-            self.reboot_ts = frame_id
-            system_rebooted = True
-            self.consecutive_lose_track_frame = 0
-            self.decoder_freezed = False
+                self.cur_pose_ref = init_guess
+                tracked = False
 
         # ---- IV. mapping, gated on the device by tracker validity
-        stop_prev = self.stop_status
-        host_force = frame_id < 5 or system_rebooted
-        if not tracked:
-            T32_dev = self._tensor(self.cur_pose_ref)
-            td_dev = td_host
-            mapok_dev = torch.tensor(not self.lose_track, device=dev)
-        do_map_dev = torch.tensor(host_force, device=dev) | (
-            mapok_dev & (not stop_prev))
-        # localization mode dispatches no mapping, training, prune or pool
-        # filter
-        dispatched_map = not self.localization_mode
-        pool_cadence = (frame_id + 1) % c.pool_filter_freq == 0
-        # prune inactive low-certainty points; half-period phase offset so
-        # it never lands on a pool-filter frame
-        if dispatched_map and c.prune_map_on and (
-                frame_id + 1 + c.prune_freq_frame // 2) \
-                % c.prune_freq_frame == 0:
-            self.prune_and_rehash(frame_id, td_dev)
-        static_mask = None
-        if dispatched_map and c.dynamic_filter_on and frame_id > 0:
-            # judge valid rows only (pad rows sit at the sensor origin after
-            # the transform and would widen the elevation band)
-            rows = torch.arange(c.frame_point_cap, device=dev) < train_n
-            hist = None
-            if c.visibility_filter_on:
-                # row 0: the current origin (elevation band only); then the
-                # historic origins, clamped to frame 0 early on
-                orig = np.stack(
-                    [self.pgo_poses[max(frame_id - off, 0)][:3, 3]
-                     for off in c.visibility_hist_offsets])
-                hist = torch.cat([T32_dev[:3, 3][None], self._tensor(orig)])
-            static_mask = self.dynamic_filter(
-                transform_points(train_pts, T32_dev), rows,
-                self._lf(frame_id - 1), hist)
-            self.last_static_mask = static_mask
-            self.last_train_pts = train_pts
-            self.last_train_n = train_n
-        if dispatched_map:
-            _, new_obs_ratio = self.frame_update(
-                train_pts, train_n, T32_dev, frame_id, td_dev,
-                force_all_new=system_rebooted, do_map=do_map_dev,
-                insert_cap=(1 << 16) if host_force else (1 << 14),
-                static_mask=static_mask, train_attr=train_attr)
-            self.sync_feature_params()
-            if pool_cadence:
-                self.filter_pool(T32_dev[:3, 3])
-        self._sync()
+        with tracing.stage("frame.map_update"):
+            # ---- reboot check (uses the lose-track counter of the previous
+            # frame so mapping needs no tracker result on the host)
+            system_rebooted = False
+            if self.consecutive_lose_track_frame >= c.reboot_frame_thre:
+                self.pool.count = torch.zeros_like(self.pool.count)
+                self.pool.new_count = torch.zeros_like(self.pool.new_count)
+                self.reboot_ts = frame_id
+                system_rebooted = True
+                self.consecutive_lose_track_frame = 0
+                self.decoder_freezed = False
+
+            stop_prev = self.stop_status
+            host_force = frame_id < 5 or system_rebooted
+            if not tracked:
+                T32_dev = self._tensor(self.cur_pose_ref)
+                td_dev = td_host
+                mapok_dev = torch.tensor(not self.lose_track, device=dev)
+            do_map_dev = torch.tensor(host_force, device=dev) | (
+                mapok_dev & (not stop_prev))
+            # localization mode dispatches no mapping, training, prune or pool
+            # filter
+            dispatched_map = not self.localization_mode
+            pool_cadence = (frame_id + 1) % c.pool_filter_freq == 0
+            # prune inactive low-certainty points; half-period phase offset so
+            # it never lands on a pool-filter frame
+            if dispatched_map and c.prune_map_on and (
+                    frame_id + 1 + c.prune_freq_frame // 2) \
+                    % c.prune_freq_frame == 0:
+                with tracing.span("mapper.prune"):
+                    self.prune_and_rehash(frame_id, td_dev)
+            static_mask = None
+            if dispatched_map and c.dynamic_filter_on and frame_id > 0:
+                # judge valid rows only (pad rows sit at the sensor origin
+                # after the transform and would widen the elevation band)
+                rows = torch.arange(c.frame_point_cap, device=dev) < train_n
+                hist = None
+                if c.visibility_filter_on:
+                    # row 0: the current origin (elevation band only); then the
+                    # historic origins, clamped to frame 0 early on
+                    orig = np.stack(
+                        [self.pgo_poses[max(frame_id - off, 0)][:3, 3]
+                         for off in c.visibility_hist_offsets])
+                    hist = torch.cat([T32_dev[:3, 3][None],
+                                      self._tensor(orig)])
+                with tracing.span("mapper.dynamic_filter"):
+                    static_mask = self.dynamic_filter(
+                        transform_points(train_pts, T32_dev), rows,
+                        self._lf(frame_id - 1), hist)
+                self.last_static_mask = static_mask
+                self.last_train_pts = train_pts
+                self.last_train_n = train_n
+            if dispatched_map:
+                with tracing.span("mapper.frame_update"):
+                    _, new_obs_ratio = self.frame_update(
+                        train_pts, train_n, T32_dev, frame_id, td_dev,
+                        force_all_new=system_rebooted, do_map=do_map_dev,
+                        insert_cap=(1 << 16) if host_force else (1 << 14),
+                        static_mask=static_mask, train_attr=train_attr)
+                    self.sync_feature_params()
+                if pool_cadence:
+                    with tracing.span("mapper.pool_filter"):
+                        self.filter_pool(T32_dev[:3, 3])
 
         # ---- training: dispatched before the frame's host pull; its host
         # gates (lose-track, stop, adaptive iterations) lag one frame
@@ -913,15 +927,16 @@ class PinSLAMSystem:
         ba_due = (c.track_on and c.ba_freq_frame > 0
                   and (frame_id + 1) % c.ba_freq_frame == 0)
         # bundle adjustment needs this frame's pulled pose
-        lag_pull = dispatched_map and not ba_due and not self._sync_timing
+        lag_pull = dispatched_map and not ba_due
         if lag_pull:
             run_training()
 
         # next frame's stage I rides ahead of the blocking pull
         if next_points is not None and next_points.shape[0] >= 10:
-            self._prefetch = (frame_id + 1,
-                              self._run_preprocess(next_points,
-                                                   next_sem_labels))
+            with tracing.span("frame.prefetch"):
+                self._prefetch = (frame_id + 1,
+                                  self._run_preprocess(next_points,
+                                                       next_sem_labels))
 
         # ---- the frame's batched host pull
         pull = []
@@ -932,10 +947,10 @@ class PinSLAMSystem:
         if dispatched_map and pool_cadence:
             pull.append(self.state.count)
         pull += [train_total, src_total]
-        t_pull0 = time.time()
-        flat = torch.cat([torch.as_tensor(t, device=dev).reshape(-1)
-                          .to(torch.float64) for t in pull]).cpu().numpy()
-        self.last_pull_block = time.time() - t_pull0
+        with tracing.stage("frame.pull") as pull_span:
+            flat = torch.cat([torch.as_tensor(t, device=dev).reshape(-1)
+                              .to(torch.float64) for t in pull]).cpu().numpy()
+        self.last_pull_block = pull_span.seconds
         tt, st = int(flat[-2]), int(flat[-1])
         flat = flat[:-2]
         if tt > c.frame_point_cap or st > c.source_point_cap:
@@ -975,24 +990,19 @@ class PinSLAMSystem:
                 and int(flat[0]) > 0.9 * c.map_capacity:
             # capacity watchdog: grow before inserts start dropping points
             self.grow_map_capacity()
-        t4 = time.time()
 
         # ---- III. loop closure + PGO, after the pull: the current frame is
         # already in the map with ts=frame_id, so a closure's deformation
         # corrects it like every other frame
         if loop_hook is not None:
             loop_hook(frame_id)
-        t3 = time.time()
 
         if not lag_pull:
             run_training()
-        self._sync()
-        t5 = time.time()
-
-        self.timings.append([t1 - t0, t2 - t1, t3 - t4, t4 - t2, t5 - t3])
         self.cur_frame = frame_id + 1
         return self.cur_pose_ref.copy()
 
+    @tracing.spanned("mapper.train", is_stage=True)
     def train(self, iters: int, frame_id: int, td_dev=None, T_dev=None,
               draws=None):
         """Run `iters` mapping iterations with a fresh optimizer. Under the

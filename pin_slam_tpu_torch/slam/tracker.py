@@ -13,6 +13,8 @@ solve -> pose update -> failure and convergence checks. The JAX package
 runs the iterations in one `lax.while_loop` on the device; here they are a
 Python loop that reads the stop flag on the host once per iteration (one
 device sync per GN iteration; a CUDA graph of the loop body is later work).
+A registration is a `tracker.track` span (`utils/tracing.py`), each GN
+iteration with the read of its stop flag a `tracker.iter` span inside it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from pin_slam_tpu_torch.ops import knn_join as kj
 from pin_slam_tpu_torch.models import neural_points as npm
 from pin_slam_tpu_torch.ops.transforms import rotation_angle, so3_exp
 from pin_slam_tpu_torch.slam import map_query as mq
+from pin_slam_tpu_torch.utils import tracing
 
 CAND_K = 12
 
@@ -182,6 +185,7 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
             g = g - photo_fac * (Jcw.T @ res_c)
         return H, g, res_cm, vcount, mse, w, valid
 
+    @tracing.spanned("tracker.track")
     def track(geo_features, geo_mlp, src: torch.Tensor,
               src_mask: torch.Tensor, init_T: torch.Tensor,
               anchor: torch.Tensor, lset, loop_reg: bool = False,
@@ -265,6 +269,19 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         def gm_scale(i):
             return max(1.0, tp.gm_anneal * 0.5 ** i)
 
+        def stopped():
+            """The host's read of the stop flag (a device sync), skipped
+            once the iteration budget is spent."""
+            return st["i"] >= tp.reg_iter_n or bool(st["stop"])
+
+        def iterate(q_of):
+            """One GN iteration on the quantities `q_of(pts)` at the
+            current pose, and the read of its stop flag."""
+            with tracing.span("tracker.iter"):
+                pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
+                gn_update(q_of(pts))
+                return stopped()
+
         def finish():
             """The final residual and eigenvalue checks."""
             res_ok = st["res_cm"] <= tp.max_valid_residual_cm
@@ -289,9 +306,9 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
             # when tracking colour)
             if not use_color:
                 color_mlp = color_features = None
-            while st["i"] < tp.reg_iter_n and not bool(st["stop"]):
-                pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
-                gn_update(quantities_uncached(
+            stop = stopped()
+            while not stop:
+                stop = iterate(lambda pts: quantities_uncached(
                     geo_features, geo_mlp, pts, src_mask, anchor,
                     gm_scale(st["i"]), lset, state, lf, qperm0,
                     src_intensity, color_features, color_mlp))
@@ -302,21 +319,27 @@ def make_tracker(qp: mq.QueryParams, tp: TrackerParams):
         track_pack = mq.pack_lset_rows(lset, geo_features)
         n_probed = 5 if loop_reg else 3
         cand = cvalid = rows = None
-        for k_probe in range(n_probed):
-            if k_probe and bool(st["stop"]):
-                break
-            pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
+
+        def cached(pts):
+            return quantities(geo_mlp, pts, src_mask, anchor, lset, cand,
+                              cvalid, gm_scale(st["i"]), rows)
+
+        def probed(pts):
+            nonlocal cand, cvalid, rows
             cand, cvalid = probe(pts + anchor)
             rows = track_pack[torch.where(cvalid, cand,
                                           torch.full_like(cand, lset.cap))]
-            gn_update(quantities(geo_mlp, pts, src_mask, anchor, lset, cand,
-                                 cvalid, gm_scale(st["i"]), rows))
+            return cached(pts)
+
+        stop = False
+        for _ in range(n_probed):
+            stop = iterate(probed)
+            if stop:
+                break
         # CACHED phase: the last probe's candidates, re-ranked exactly to
         # the top nn_k every iteration
-        while st["i"] < tp.reg_iter_n and not bool(st["stop"]):
-            pts = src @ st["T"][:3, :3].T + st["T"][:3, 3]
-            gn_update(quantities(geo_mlp, pts, src_mask, anchor, lset, cand,
-                                 cvalid, gm_scale(st["i"]), rows))
+        while not stop:
+            stop = iterate(cached)
         return finish()
 
     return track

@@ -540,3 +540,96 @@ def test_sharded_mesher_is_bit_equal_on_the_card(cuda):
     va, fa = plain.recon_map_mesh(*args)
     vb, fb = sharded.recon_map_mesh(*args)
     assert np.array_equal(va, vb) and np.array_equal(fa, fb)
+
+
+def _profiled_frame(dev, traced, n_frames=4):
+    """A small cell-probe system with the loop manager, `n_frames` frames
+    with the tracer on or off; the last frame under torch.profiler.
+    Returns the poses and the profile's events."""
+    from pin_slam_tpu_torch.config import Config
+    from pin_slam_tpu_torch.dataset.synthetic import (
+        SyntheticSequence, circle_trajectory, default_scene,
+        lidar_directions)
+    from pin_slam_tpu_torch.slam.loop import LoopPgoManager
+    from pin_slam_tpu_torch.slam.system import PinSLAMSystem
+    from pin_slam_tpu_torch.utils import tracing
+
+    c = Config()
+    c.track_on, c.pgo_on, c.probe_mode, c.silence = True, True, "cells", True
+    c.voxel_size_m, c.sigma_sigmoid_m, c.loss_weight_on = 0.3, 0.1, True
+    c.vox_down_m, c.source_vox_down_m = 0.08, 0.4
+    c.bs, c.iters, c.init_iter_ratio, c.bs_new_sample = 2048, 6, 20, 512
+    c.map_capacity, c.buffer_size, c.max_frames = 1 << 17, 1 << 19, 16
+    c.finalize()
+    seq = SyntheticSequence(
+        scene_sdf=default_scene(),
+        poses=circle_trajectory(n_frames, radius=6.0, revolutions=0.03,
+                                ease_in_frames=4),
+        dirs=lidar_directions(1024, 32), max_range=60.0)
+    system = PinSLAMSystem(c, device=dev)
+    system.set_gt_poses(seq.poses)
+    loop_mgr = LoopPgoManager(c, system)
+    poses, prof = [], None
+    if traced:
+        tracing.enable()
+    try:
+        for fid in range(n_frames):
+            pts = seq.frame(fid)
+            if fid == n_frames - 1:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+            poses.append(system.process_frame(
+                fid, pts, loop_hook=lambda f, _p=pts: loop_mgr.after_frame(
+                    f, _p)))
+        torch.cuda.synchronize()
+        prof.stop()
+    finally:
+        tracing.disable()
+        tracing.drain()
+    return np.stack(poses), prof.events()
+
+
+@pytest.mark.cuda
+def test_the_tracer_adds_no_device_op_and_no_sync(cuda):
+    """The same frames with the tracer off and on: in the profiled frame
+    the runtime's kernel launches, copies, sets and syncs are as many, the
+    device operations the same by name, and the poses bit-equal; only the
+    traced run's trace holds the program's `pin_slam.*` ranges, and none
+    of them on the device's timeline. The device events of pageable
+    host-to-device copies are left out of the comparison by name: their
+    count varies between two runs with the tracer off (101 and 102 for the
+    same 635 copy calls), while the copy calls are compared."""
+    from collections import Counter
+
+    calls, ops, poses = {}, {}, {}
+    for traced in (False, True):
+        poses[traced], events = _profiled_frame(cuda, traced)
+        c, d = Counter(), Counter()
+        for e in events:
+            name = e.name
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if name.startswith("pin_slam."):
+                    c["device_ranges"] += 1
+                elif not (getattr(e, "is_user_annotation", False)
+                          or name.startswith("Memcpy HtoD (Pageable")):
+                    d[name] += 1
+            elif name.startswith("pin_slam."):
+                c["ranges"] += 1
+            elif name.startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset",
+                                  "cudaStreamSynchronize",
+                                  "cudaDeviceSynchronize",
+                                  "cudaEventSynchronize")):
+                c[name] += 1
+        calls[traced], ops[traced] = c, d
+    off, on = calls[False], calls[True]
+    assert sum(v for k, v in off.items() if k.startswith("cudaLaunch")) \
+        > 100 and off["ranges"] == 0
+    assert on["ranges"] > 10 and on["device_ranges"] == 0
+    del on["ranges"], off["ranges"]
+    assert off == on
+    assert ops[False] == ops[True], (ops[False] - ops[True],
+                                     ops[True] - ops[False])
+    assert np.array_equal(poses[False], poses[True])
