@@ -198,13 +198,36 @@ def rebuild_probe_cache(state: MapState, resolution: float) -> MapState:
         is_winner, contract=False))
 
 
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(values: np.ndarray, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+    """`torch.as_tensor(values, dtype, device)`, uploaded once per values,
+    dtype and device and shared after that: an upload from host memory
+    makes the host wait for the device, and a CUDA graph cannot capture
+    it. Callers never write to the tensor."""
+    a = np.ascontiguousarray(values)
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, torch.device(device))
+    t = _DEVICE_CONSTANTS.get(key)
+    if t is None:
+        t = _DEVICE_CONSTANTS[key] = torch.as_tensor(a, dtype=dtype,
+                                                     device=device)
+    return t
+
+
 def _travel_window_ts_lo(travel_dist: torch.Tensor, cur_ts,
                          window: float, strict: bool = False) -> torch.Tensor:
     """Smallest timestamp still inside the travel-distance window (the
     count of timestamps <= cur_ts whose travel lies at or below — or
-    strictly below with `strict` — travel[cur_ts] - window)."""
+    strictly below with `strict` — travel[cur_ts] - window). `cur_ts` is
+    an int or an integer device scalar (read on the device, no sync)."""
     t = torch.arange(travel_dist.shape[0], device=travel_dist.device)
-    lim = travel_dist[cur_ts] - window
+    if torch.is_tensor(cur_ts):
+        lim = travel_dist.index_select(0, cur_ts.reshape(1).long()
+                                       ).reshape(()) - window
+    else:
+        lim = travel_dist[cur_ts] - window
     below = (travel_dist < lim) if strict else (travel_dist <= lim)
     return (below & (t <= cur_ts)).sum()
 
@@ -416,12 +439,12 @@ def _query_neighbors_brick(
     n = qpts.shape[0]
     n_bricks = state.btable.shape[0] - 1
     ball, ball_r2, ball_r = _ball_columns(offsets)
-    ball_t = torch.as_tensor(ball, dtype=torch.int32, device=dev)
+    ball_t = device_constant(ball, torch.int32, dev)
 
     grid = hash3d.grid_coords(qpts, resolution)             # [N, 3] i32
     b0 = (grid - ball_r) >> 2                               # arithmetic
-    bcs = b0[:, None, :] + torch.as_tensor(_BRICK_NEI, dtype=torch.int32,
-                                           device=dev)[None]
+    bcs = b0[:, None, :] + device_constant(_BRICK_NEI, torch.int32,
+                                           dev)[None]
     rows = state.btable[hash3d.hash_grid(bcs, n_bricks)]    # [N, 8, 64, 3]
 
     # the ball's cells: their brick among the 8 and their slot in it
@@ -508,7 +531,7 @@ def _query_neighbors_cells(
     B = state.table_size
     dev = qpts.device
     qpts = qpts.detach()
-    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32, device=dev)
+    offs = device_constant(np.asarray(offsets), torch.int32, dev)
 
     grid = hash3d.grid_coords(qpts, resolution)            # [N, 3]
     cells = grid[:, None, :] + offs[None, :, :]            # [N, K, 3]
@@ -664,14 +687,16 @@ def accumulate_certainty(state: MapState, qn: QueryNeighbors,
     state.certainty.copy_(index_add_exact(
         state.certainty, idx,
         torch.where(qn.valid, w, torch.zeros_like(w)).reshape(-1)))
-    state.certainty[C] = 0.0
+    # the dump row reset through a slice: assigning to one element of a
+    # device tensor uploads the value from the host, a sync
+    state.certainty[C:].zero_()
     if query_ts is not None:
         ts_b = query_ts[:, None].expand(qn.idx.shape).reshape(-1)
         state.ts_update.scatter_reduce_(
             0, idx, torch.where(qn.valid.reshape(-1), ts_b.to(torch.int32),
                                 torch.zeros_like(ts_b, dtype=torch.int32)),
             reduce="amax")
-        state.ts_update[C] = 0
+        state.ts_update[C:].zero_()
     return state
 
 

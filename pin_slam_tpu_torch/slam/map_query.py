@@ -402,10 +402,10 @@ def query_sdf_and_grad(geo_features, geo_mlp, qpts: torch.Tensor,
 
 
 def _shifts6(eps: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(
-        [[eps, 0, 0], [-eps, 0, 0], [0, eps, 0],
-         [0, -eps, 0], [0, 0, eps], [0, 0, -eps]], dtype=like.dtype,
-        device=like.device)
+    return npm.device_constant(
+        np.array([[eps, 0, 0], [-eps, 0, 0], [0, eps, 0],
+                  [0, -eps, 0], [0, 0, eps], [0, 0, -eps]], np.float64),
+        like.dtype, like.device)
 
 
 def _central_diff(s: torch.Tensor, eps: float) -> torch.Tensor:

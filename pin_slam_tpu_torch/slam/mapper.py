@@ -20,10 +20,21 @@ correction.
 * Colour features train beside the geometry features, and the colour and
   semantic decoders beside the SDF decoder; all three decoders freeze
   together (`train_decoder=False`).
+* On the card, one replica's whole-map route replays the loss, gradient
+  and certainty of its iterations 2..n from a CUDA graph of one
+  iteration, captured once per map shape (`_WholeMapGraph`, the last
+  shape's kept across iteration counts); Adam steps eagerly after each.
+  Iteration 1 of every frame runs eagerly, as on the other routes; the
+  graph reads only buffers it owns, refreshed by device copies before a
+  frame's replays, with the frame id and the reboot frame as device
+  scalars. The join route, the data-parallel replicas and the CPU run
+  every iteration eagerly.
 * A training run's spans (`utils/tracing.py`): `mapper.setup` (draws,
   copies, Adam), one `mapper.iter` per iteration holding `mapper.loss`,
-  `mapper.backward`, `mapper.step` and `mapper.certainty`, then
-  `mapper.writeback`.
+  `mapper.backward`, `mapper.step` and `mapper.certainty` (an eager
+  iteration; the captured route takes the certainty before the step), or
+  `mapper.replay` (a replayed one, after `mapper.capture` where the graph
+  is captured) and `mapper.step`, then `mapper.writeback`.
 """
 
 from __future__ import annotations
@@ -381,9 +392,180 @@ def draw_train_indices(generator, pool: PoolState, *, n_iters: int, bs: int,
     return draws
 
 
+def whole_map_rows(pool: PoolState, draws: dict, slot: torch.Tensor,
+                   bs: int, bs_new: int) -> torch.Tensor:
+    """[n_iters, bs] pool rows of each iteration of the whole-map route:
+    the history draws, with the tail's `slot`s taken by the frame's new
+    samples."""
+    hist = draws["hist"]
+    if bs_new == 0:
+        return hist
+    tail = torch.where(slot[None], pool.new_idx[draws["new_sel"]],
+                       hist[:, :bs_new])
+    return torch.cat([hist[:, :bs - bs_new], tail], dim=1)
+
+
+def _replays(dev: torch.device) -> bool:
+    """Whether one replica's whole-map route trains over a
+    `_WholeMapGraph`: on the card, where it is captured and replayed. (A
+    function, so that the CPU tests can send the route through the graph's
+    buffers, which then call the iteration eagerly.)"""
+    return dev.type == "cuda"
+
+
+class _WholeMapGraph:
+    """One whole-map training iteration's loss, gradient and certainty
+    over tensors it owns: copies of the map rows a query reads and the
+    certainty writes, the trained leaves, a batch of packed pool rows and
+    its mask, and a travel-window filter whose frame id and reboot frame
+    are device scalars. `load` refreshes them from a frame's map,
+    parameters and filter by device copies. On the card the iteration is
+    captured once as a CUDA graph (`capture`) and replayed; elsewhere
+    `run` calls it eagerly. Adam's step stays outside: the optimizer's own
+    step bakes each step's bias corrections into its kernels as host
+    numbers, and its capturable form computes them in float32, where 1 -
+    0.999 keeps four digits (every first step 6.4e-6 short)."""
+
+    def __init__(self, state: npm.MapState, params: dict,
+                 lf: mq.LocalFilter, *, qp: mq.QueryParams, loss_kwargs: dict,
+                 unpack, train_decoder: bool, bs: int, n_cols: int,
+                 cons_m: int):
+        dev = state.positions.device
+        e = torch.empty_like
+        self.qp, self.loss_kwargs, self.unpack = qp, loss_kwargs, unpack
+        with torch.no_grad():
+            self.feat = e(params["geo_features"]).requires_grad_(True)
+            self.cfeat = None
+            if loss_kwargs.get("color_on", False) \
+                    and params.get("color_features") is not None:
+                self.cfeat = e(params["color_features"]).requires_grad_(True)
+            self.mlps = {
+                name: {k: [e(t).requires_grad_(train_decoder)
+                           for t in params[name][k]] for k in ("w", "b")}
+                for name in ("geo_mlp", "color_mlp", "sem_mlp")
+                if params.get(name) is not None}
+            brick = qp.probe_mode == "brick"
+            self.state = npm.MapState(
+                positions=e(state.positions),
+                orientations=e(state.orientations),
+                geo_features=self.feat.detach(), ts_create=e(state.ts_create),
+                ts_update=e(state.ts_update), certainty=e(state.certainty),
+                count=e(state.count), table=e(state.table),
+                btable=e(state.btable) if brick else None)
+            self.lf = lf._replace(
+                travel_dist=e(lf.travel_dist),
+                cur_ts=torch.zeros((), dtype=torch.int64, device=dev),
+                reboot_ts=torch.zeros((), dtype=torch.int64, device=dev),
+                sensor_pos=None if lf.sensor_pos is None
+                else e(lf.sensor_pos),
+                sensor_origins=None if lf.sensor_origins is None
+                else e(lf.sensor_origins))
+            self.packed = torch.zeros((bs, n_cols), device=dev)
+            self.mask = torch.zeros(bs, dtype=torch.bool, device=dev)
+            self.cons_u = (torch.zeros((cons_m, 3), device=dev)
+                           if cons_m > 0 else None)
+        self.train_vars = [self.feat] + (
+            [self.cfeat] if self.cfeat is not None else [])
+        if train_decoder:
+            for m in self.mlps.values():
+                self.train_vars += m["w"] + m["b"]
+        self.graph = None
+        self.out = None
+
+    def load(self, params: dict, state: npm.MapState, lf: mq.LocalFilter):
+        """A frame's map, parameters and filter into the owned tensors."""
+        with torch.no_grad():
+            s = self.state
+            for name in ("positions", "orientations", "ts_create",
+                         "ts_update", "certainty", "count", "table"):
+                getattr(s, name).copy_(getattr(state, name))
+            if s.btable is not None:
+                s.btable.copy_(state.btable)
+            self.feat.copy_(params["geo_features"])
+            if self.cfeat is not None:
+                self.cfeat.copy_(params["color_features"])
+            for name, m in self.mlps.items():
+                for k in ("w", "b"):
+                    for a, b in zip(m[k], params[name][k]):
+                        a.copy_(b)
+            f = self.lf
+            f.travel_dist.copy_(lf.travel_dist)
+            f.cur_ts.fill_(lf.cur_ts)
+            f.reboot_ts.fill_(lf.reboot_ts)
+            if f.sensor_pos is not None:
+                f.sensor_pos.copy_(lf.sensor_pos)
+            if f.sensor_origins is not None:
+                f.sensor_origins.copy_(lf.sensor_origins)
+
+    def iterate(self, batch: dict, mask: torch.Tensor, cons_u,
+                lf: mq.LocalFilter):
+        """One iteration's loss (`mapping_loss`, looked up when called),
+        its gradient and the certainty on the owned leaves and map copy.
+        Returns (the gradient of each trained leaf, [loss, consistency
+        term])."""
+        with tracing.span("mapper.loss"):
+            loss, aux = mapping_loss(
+                self.feat, self.mlps["geo_mlp"], batch, mask, None, None,
+                None, self.qp, color_features=self.cfeat,
+                color_mlp=self.mlps.get("color_mlp"),
+                sem_mlp=self.mlps.get("sem_mlp"), cons_u=cons_u,
+                state=self.state, lf=lf, **self.loss_kwargs)
+        with tracing.span("mapper.backward"):
+            grads = torch.autograd.grad(loss, self.train_vars,
+                                        allow_unused=True)
+        # the certainty and update timestamps of the iteration's neighbors,
+        # before the next iteration's query (Adam's step reads neither)
+        with tracing.span("mapper.certainty"), torch.no_grad():
+            npm.accumulate_certainty(self.state, aux["qn"], aux["w"].detach(),
+                                     aux["ts"])
+        return list(grads), torch.stack([loss.detach(),
+                                         aux["consistency_loss"].detach()])
+
+    def capture(self):
+        """Capture one iteration on the owned batch (nothing runs)."""
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self.iterate(self.unpack(self.packed), self.mask,
+                                    self.cons_u, self.lf)
+
+    def run(self):
+        """One iteration on the owned batch, replayed where captured, else
+        called: (gradients, [loss, consistency term])."""
+        if self.graph is None:
+            return self.iterate(self.unpack(self.packed), self.mask,
+                                self.cons_u, self.lf)
+        with tracing.span("mapper.replay"):
+            self.graph.replay()
+        return self.out
+
+
+def _graph_key(qp, loss_kwargs, state: npm.MapState, params: dict,
+               lf: mq.LocalFilter, *, train_decoder: bool, bs: int,
+               bs_new: int, n_cols: int, cons_m: int) -> tuple:
+    """What a captured iteration is built for: the shapes of the map, the
+    features, the decoders, the batch and the filter, whether the decoders
+    train, and the constants the iteration bakes in (the query and loss
+    settings, the window). Not the iteration count, nor any address."""
+    def shape(t):
+        return None if t is None else tuple(t.shape)
+    mlps = tuple((name, tuple(shape(t) for k in ("w", "b")
+                              for t in params[name][k]))
+                 for name in ("geo_mlp", "color_mlp", "sem_mlp")
+                 if params.get(name) is not None)
+    return (qp, tuple(sorted(loss_kwargs.items())), state.capacity,
+            state.table_size,
+            shape(state.btable) if qp.probe_mode == "brick" else None,
+            shape(params["geo_features"]), shape(params.get("color_features")),
+            mlps, train_decoder, bs, bs_new, n_cols, cons_m,
+            shape(lf.travel_dist), shape(lf.sensor_pos),
+            shape(lf.sensor_origins), lf.local_window_dist,
+            lf.local_map_radius)
+
+
 def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                     n_iters: int, bs: int, bs_new: int, train_decoder: bool,
-                    loss_kwargs: dict, subset_hist: int = 0, mesh=None):
+                    loss_kwargs: dict, subset_hist: int = 0, mesh=None,
+                    graph: Optional[dict] = None, _eager: bool = False):
     """Whole per-frame training run (`n_iters` mapping iterations).
 
     With a local set and n_iters <= 32 and subset_hist >= bs (the
@@ -408,6 +590,15 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
     max on the first device (the JAX loop's `psum` / `pmax`). The effective
     batch of an iteration is R x bs.
 
+    Without a local set or `mesh`, on the card, iterations 2..n replay a
+    captured iteration's loss, gradient and certainty (`_WholeMapGraph`),
+    captured after iteration 1 of the first frame of its key; Adam steps
+    after each. The results are the eager loop's, bit for bit. `graph` is
+    the slot of the last key's graph, `{key: graph}`, that a system's loops
+    of every iteration count share (the loop's own when None); a new key
+    replaces it. `_eager` keeps that route eager (the card test's
+    reference).
+
     Returns loop(params, state, pool, generator, use_new, lset, draws=None,
     lf=None, terms=None) -> (params, state, losses [n_iters]); `draws`
     (from `draw_train_indices`; a list of one per replica with `mesh`)
@@ -422,6 +613,7 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
     cons_m = (min(loss_kwargs.get("consistency_count", 1000), bs)
               if loss_kwargs.get("consistency_loss_on", False) else 0)
     replicas = None if mesh is None else [torch.device(d) for d in mesh]
+    graph = {} if graph is None else graph
 
     def probe_chunked(coords, lset):
         idx_parts, val_parts = [], []
@@ -461,14 +653,8 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
         cvalid) of iteration i, and the subset path's rows, candidates and
         window starts (None on the other paths)."""
         dev = pool.coord.device
-        new_rows = pool.new_idx[draws["new_sel"]]         # [n_iters, bs_new]
         if lset is None or not use_subset:
-            hist = draws["hist"]                           # [n_iters, bs]
-            if bs_new > 0:
-                tail = torch.where(slot[None], new_rows, hist[:, :bs_new])
-                idx_all = torch.cat([hist[:, :bs - bs_new], tail], dim=1)
-            else:
-                idx_all = hist
+            idx_all = whole_map_rows(pool, draws, slot, bs, bs_new)
         if lset is None:
             def batch_of(i):
                 return (unpack(pack_pool_rows(pool, idx_all[i])),
@@ -486,6 +672,7 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                         mask_all[i], cand_all[i], cval_all[i])
             return batch_of, None
         S_h = draws["hist"].shape[0]
+        new_rows = pool.new_idx[draws["new_sel"]]         # [n_iters, bs_new]
         sub_idx = torch.cat([draws["hist"], new_rows.reshape(-1)])
         packed = pack_pool_rows(pool, sub_idx)
         # row validity folded into the weight: dead rows never train
@@ -565,10 +752,102 @@ def make_train_loop(qp: mq.QueryParams, *, lr: float, adam_eps: float,
                 torch.where(qn.valid, aux["ts"][:, None],
                             torch.zeros_like(qn.idx, dtype=torch.int32)))
 
+    def graph_loop(params, state: npm.MapState, pool: PoolState, generator,
+                   use_new: torch.Tensor, draws, lf: mq.LocalFilter,
+                   terms: Optional[dict]):
+        """The whole-map route of one replica over a `_WholeMapGraph`:
+        iteration 1 eager on a freshly gathered batch and the caller's
+        filter, iterations 2..n on the graph's batch, each refreshed by
+        one device copy of its rows; every iteration's step by a fresh
+        Adam of the frame, as on the other routes."""
+        with tracing.span("mapper.setup"):
+            dev = state.positions.device
+            if draws is None:
+                draws = draw_train_indices(generator, pool, n_iters=n_iters,
+                                           bs=bs, bs_new=bs_new,
+                                           subset_hist=subset_hist,
+                                           whole_map=True, cons_m=cons_m)
+            slot = use_new.to(dev) & (torch.arange(bs_new, device=dev)
+                                      < pool.new_count)
+            idx_all = whole_map_rows(pool, draws, slot, bs, bs_new)
+            cons = draws.get("cons_u")
+            packed0 = pack_pool_rows(pool, idx_all[0])
+            key = _graph_key(qp, loss_kwargs, state, params, lf,
+                             train_decoder=train_decoder, bs=bs,
+                             bs_new=bs_new, n_cols=packed0.shape[1],
+                             cons_m=cons_m)
+            g = graph.get(key)
+            if g is None:
+                graph.clear()       # the last key's buffers and memory pool
+                g = graph[key] = _WholeMapGraph(
+                    state, params, lf, qp=qp, loss_kwargs=loss_kwargs,
+                    unpack=unpack, train_decoder=train_decoder, bs=bs,
+                    n_cols=packed0.shape[1], cons_m=cons_m)
+            g.load(params, state, lf)
+            # a fresh Adam per frame, matched to optax.adam(lr, eps)
+            opt = torch.optim.Adam(g.train_vars, lr=lr, betas=(0.9, 0.999),
+                                   eps=adam_eps)
+            if n_iters > 1:
+                # every replayed iteration's rows, gathered at once
+                packed_all = pack_pool_rows(pool, idx_all[1:].reshape(-1)
+                                            ).reshape(n_iters - 1, bs, -1)
+                mask_all = idx_all[1:] < pool.count
+                outs = torch.empty((n_iters - 1, 2), device=dev)
+
+        def step(grads):
+            with tracing.span("mapper.step"):
+                opt.zero_grad(set_to_none=True)
+                for p, gr in zip(g.train_vars, grads):
+                    p.grad = gr
+                opt.step()
+
+        with tracing.span("mapper.iter"):
+            grads, first = g.iterate(unpack(packed0), idx_all[0] < pool.count,
+                                     None if cons is None else cons[0], lf)
+            step(grads)
+        for i in range(1, n_iters):
+            with tracing.span("mapper.iter"):
+                g.packed.copy_(packed_all[i - 1])
+                g.mask.copy_(mask_all[i - 1])
+                if cons is not None:
+                    g.cons_u.copy_(cons[i])
+                if dev.type == "cuda" and g.graph is None:
+                    with tracing.span("mapper.capture"):
+                        g.capture()
+                grads, out = g.run()
+                step(grads)
+                outs[i - 1].copy_(out)
+
+        with tracing.span("mapper.writeback"):
+            res = first[None] if n_iters == 1 else torch.cat([first[None],
+                                                              outs])
+            if terms is not None:
+                terms["consistency_loss"] = res[:, 1]
+            new_params = dict(params)
+            for name, m in g.mlps.items():
+                new_params[name] = {k: [t.detach().clone() for t in m[k]]
+                                    for k in ("w", "b")}
+            # the trained features, certainty and update timestamps replace
+            # the map's in place
+            with torch.no_grad():
+                state.geo_features.copy_(g.feat)
+                if g.cfeat is not None:
+                    state.color_features.copy_(g.cfeat)
+                state.certainty.copy_(g.state.certainty)
+                state.ts_update.copy_(g.state.ts_update)
+            new_params["geo_features"] = state.geo_features
+            if g.cfeat is not None:
+                new_params["color_features"] = state.color_features
+            return new_params, state, res[:, 0]
+
     def loop(params, state: npm.MapState, pool: PoolState, generator,
              use_new: torch.Tensor, lset, draws=None,
              lf: Optional[mq.LocalFilter] = None,
              terms: Optional[dict] = None):
+        if lset is None and replicas is None and lf is not None \
+                and not _eager and _replays(state.positions.device):
+            return graph_loop(params, state, pool, generator, use_new,
+                              draws, lf, terms)
         with tracing.span("mapper.setup"):
             dev = state.positions.device
             C = state.capacity

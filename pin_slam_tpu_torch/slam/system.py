@@ -234,6 +234,9 @@ class PinSLAMSystem:
         self._cur_track_feats = None
         self._prefetch = None
         self._train_loops = {}
+        # the captured whole-map iteration of the last map shape, shared by
+        # the loops above
+        self._train_graph = {}
         # False until the first elastic deformation: until then every
         # orientation is the identity and the training local set carries
         # none, so its decodes skip the offset rotation
@@ -616,7 +619,8 @@ class PinSLAMSystem:
                 self.qp, lr=c.lr, adam_eps=c.adam_eps, n_iters=iters,
                 bs=c.bs, bs_new=c.bs_new_sample, train_decoder=train_decoder,
                 loss_kwargs=self._loss_kwargs,
-                subset_hist=c.train_subset_hist, mesh=self.mesh)
+                subset_hist=c.train_subset_hist, mesh=self.mesh,
+                graph=self._train_graph)
         return self._train_loops[k]
 
     def _lf(self, cur_ts: int, sensor_pos=None) -> mq.LocalFilter:
@@ -640,8 +644,8 @@ class PinSLAMSystem:
 
     def grow_map_capacity(self, factor: int = 2):
         """Multiply the map capacity by `factor` when the map nears it. The
-        cached local sets and training loops refer to the old capacity and
-        are dropped."""
+        cached local sets, training loops and captured iterations refer to
+        the old capacity and are dropped."""
         c = self.config
         new_cap = c.map_capacity * factor
         if not c.silence:
@@ -651,6 +655,7 @@ class PinSLAMSystem:
         c.map_capacity = new_cap
         self.sync_feature_params()
         self._train_loops = {}
+        self._train_graph.clear()
         self._cur_lset = None
         self._cur_track_feats = None
 
