@@ -1258,7 +1258,7 @@ def record_ba(system, dev):
         run = make(qp, **kw)
 
         def run_and_keep(state, pool, feats, mlp, base, first_opt,
-                         generator, lf, draws=None):
+                         generator, lf, draws=None, info=None):
             n = base.shape[0]
             prow = torch.randint(0, pool.capacity, (POOL_SAMPLE,),
                                  device=dev, generator=gen)
@@ -1274,7 +1274,7 @@ def record_ba(system, dev):
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = run(state, pool, feats, mlp, base, first_opt, generator,
-                      lf, draws=draws)
+                      lf, draws=draws, info=info)
             e1.record()
             torch.cuda.synchronize()
             # copies: the system trains the returned features in place

@@ -209,6 +209,9 @@ class PinSLAMSystem:
         self.last_train_terms = None
         self.last_incidence = None
         self.last_ba_losses = None
+        # iterations and surface samples of the last BA run (slam/ba.py)
+        self.last_ba_iters = 0
+        self.last_ba_samples = 0
         self.last_track_iters = -1
         # the dynamic filter's last verdict over the train cloud (rows <
         # last_train_n), kept to score it against mover ground truth

@@ -389,6 +389,39 @@ def test_bundle_adjustment_repeats_bit_for_bit_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+def test_replayed_bundle_adjustment_is_bit_equal_to_the_eager_loop(cuda):
+    """A BA run whose iterations 2..n replay the graph it captured (the
+    default on the card) gives the eager loop's bits (`_eager=True`):
+    poses, features and every loss; one capture, n - 1 replays."""
+    from pin_slam_tpu_torch.slam import ba
+    from pin_slam_tpu_torch.utils import tracing
+
+    outs, names = [], None
+    for eager in (True, False):
+        system, _ = _ba_filter_case(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        loop = ba.make_ba_loop(system.qp, n_iters=8, bs=8192, window=4,
+                               lr_pose=1e-4, lr_map=0.01, _eager=eager)
+        tracing.drain()
+        tracing.enable()
+        try:
+            outs.append(loop(system.state, system.pool,
+                             system.params["geo_features"],
+                             system.params["geo_mlp"],
+                             system._tensor(system.odom_poses[:4]), 0, gen,
+                             system._lf(3)))
+        finally:
+            tracing.disable()
+        names = [r.name for r in tracing.drain()]
+        assert names.count("ba.capture") == (0 if eager else 1)
+        assert names.count("ba.replay") == (0 if eager else 7)
+        assert names.count("ba.iter") == names.count("ba.step") == 8
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_dynamic_filter_fused_route_matches_plain_on_the_card(cuda):
     """The filter under weighted_first=False launches the fused decode
     kernel once; its SDF agrees with the plain decode to 1e-5 and the two
